@@ -1,0 +1,62 @@
+"""curobo_tpu_torch: the PyTorch/CUDA package beside `curobo_tpu`.
+
+Collision-free batched inverse kinematics on an NVIDIA GPU through the same
+entry points as the JAX package (`Kinematics.from_robot_yaml` ->
+`compile_scene` -> `IKSolver.solve_pose`), with the fused IK kernels written
+by hand in CUDA C++ (`ops/ik_kernels.py`, `ops/csrc/`). Entry points run on
+the CUDA device unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+import os as _os
+
+import torch as _torch
+
+# fp32 throughout, no TF32: the rotation compositions and pair distances are
+# accuracy-critical, as in the reference, which forces full-precision matmuls.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+# Types
+from curobo_tpu_torch.types.pose import Pose
+from curobo_tpu_torch.types.state import JointState
+
+# Robot model
+from curobo_tpu_torch.robot.kinematics import Kinematics, KinematicsState, compute_kinematics
+from curobo_tpu_torch.robot.model import RobotModelConfig, build_kinematics_params
+from curobo_tpu_torch.robot.params import KinematicsParams, JointLimits
+
+# Geometry / world
+from curobo_tpu_torch.geom.types import (
+    Scene,
+    Cuboid,
+    SphereObstacle,
+    Capsule,
+    Cylinder,
+    MeshObstacle,
+    VoxelGridObstacle,
+)
+from curobo_tpu_torch.geom.world import WorldData, compile_scene, empty_world
+
+# Solvers
+from curobo_tpu_torch.solver.ik import IKConfig, IKResult, IKSolver
+
+# Collision convenience
+from curobo_tpu_torch.collision.robot_scene import RobotSceneCollision
+
+# Rollout / goal
+from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRolloutConfig
+
+from curobo_tpu_torch import runtime
+
+
+def content_path(*parts: str) -> str:
+    """Path into the bundled content package (robot configs)."""
+    return _os.path.join(_os.path.dirname(__file__), "content", *parts)
+
+
+def robot_config_path(name: str) -> str:
+    if not name.endswith(".yml"):
+        name = name + ".yml"
+    return content_path("robots", name)

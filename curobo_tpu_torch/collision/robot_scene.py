@@ -1,0 +1,90 @@
+"""Robot-vs-scene collision convenience API.
+
+Counterpart of `curobo_tpu/collision/robot_scene.py`: joint-space distance
+queries and batched sample/validate. `AttachmentManager` waits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from curobo_tpu_torch.geom import world as world_mod
+from curobo_tpu_torch.geom.self_collision import self_collision_distance
+from curobo_tpu_torch.robot import kinematics as kin_mod
+from curobo_tpu_torch.robot.params import KinematicsParams
+from curobo_tpu_torch.util.sampling import halton_sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class CollisionQueryResult:
+    """Per-config distances."""
+
+    scene_clearance: torch.Tensor  # (...,) min signed clearance to the world
+    self_violation: torch.Tensor  # (...,) max self-collision violation (0 = clear)
+    in_collision: torch.Tensor  # (...,) bool (scene or self)
+    out_of_bounds: torch.Tensor  # (...,) bool
+    valid: torch.Tensor  # (...,) bool: collision-free and inside limits
+
+
+class RobotSceneCollision:
+    """Joint-space collision queries against a world (plain PyTorch ops on
+    the device the robot parameters live on)."""
+
+    def __init__(self, params: KinematicsParams, margin: float = 0.0):
+        self.params = params
+        self.margin = margin
+
+    def query(self, world: world_mod.WorldData, q: torch.Tensor) -> CollisionQueryResult:
+        """q (..., D) -> per-config result (trajectories fold into batch)."""
+        p = self.params
+        st = kin_mod.compute_kinematics(p, q)
+        clear = world_mod.sphere_clearance(world, st.spheres)
+        live = st.spheres[..., 3] >= 0
+        min_clear = torch.where(live, clear, torch.full_like(clear, 1.0e6)).amin(dim=-1)
+        self_v = self_collision_distance(p.self_collision, st.spheres)
+        lim = p.joint_limits
+        oob = torch.any((q < lim.lower) | (q > lim.upper), dim=-1)
+        in_col = (min_clear < self.margin) | (self_v > 0)
+        return CollisionQueryResult(
+            scene_clearance=min_clear,
+            self_violation=self_v,
+            in_collision=in_col,
+            out_of_bounds=oob,
+            valid=~(in_col | oob),
+        )
+
+    def validate(self, world: world_mod.WorldData, q: torch.Tensor) -> torch.Tensor:
+        """bool per config."""
+        return self.query(world, q).valid
+
+    def sample(
+        self, world: world_mod.WorldData, n: int, max_attempts: int = 10
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Collision-free config sampling: (configs (n, D), valid (n,)),
+        Halton-sampled configs with a validity mask; deterministic."""
+        p = self.params
+        dev = p.device
+        lo = p.joint_limits.lower.detach().cpu().numpy()
+        hi = p.joint_limits.upper.detach().cpu().numpy()
+        lo_c = np.maximum(lo, -np.pi)
+        hi_c = np.minimum(hi, np.pi)
+        out = np.zeros((n, p.n_dof), dtype=np.float32)
+        ok = np.zeros(n, dtype=bool)
+        skip = 11
+        got = 0
+        for attempt in range(max_attempts):
+            h = halton_sequence(n, p.n_dof, skip=skip + attempt * n)
+            q_np = (lo_c + (hi_c - lo_c) * h).astype(np.float32)
+            valid = self.validate(world, torch.as_tensor(q_np, device=dev)).cpu().numpy()
+            take = np.where(valid)[0]
+            k = min(len(take), n - got)
+            out[got : got + k] = q_np[take[:k]]
+            ok[got : got + k] = True
+            got += k
+            if got >= n:
+                break
+        return torch.as_tensor(out, device=dev), torch.as_tensor(ok, device=dev)

@@ -1,0 +1,184 @@
+"""Batched forward kinematics (PyTorch).
+
+Counterpart of `curobo_tpu/robot/kinematics.py`: all per-link local
+transforms are computed in one batch, then composed level by level down the
+tree. q is (..., n_dof) with arbitrary leading batch dims. The analytic
+Jacobian and the centre of mass wait for the slices that need them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from curobo_tpu_torch.math import quaternion as qm
+from curobo_tpu_torch.robot.params import (
+    JOINT_PRISMATIC,
+    JOINT_REVOLUTE,
+    KinematicsParams,
+)
+from curobo_tpu_torch.types.pose import Pose
+
+
+@dataclasses.dataclass(frozen=True)
+class KinematicsState:
+    """FK results."""
+
+    link_rot: torch.Tensor  # (..., n_links, 3, 3)
+    link_pos: torch.Tensor  # (..., n_links, 3)
+    tool_pose: Pose  # batched (..., n_tools)
+    spheres: torch.Tensor  # (..., n_spheres, 4) xyz + radius
+    jacobian: Optional[torch.Tensor] = None  # (..., n_tools, 6, n_dof)
+
+    @property
+    def tool_position(self) -> torch.Tensor:
+        return self.tool_pose.position
+
+    @property
+    def tool_quaternion(self) -> torch.Tensor:
+        return self.tool_pose.quaternion
+
+
+def joint_values(params: KinematicsParams, q: torch.Tensor) -> torch.Tensor:
+    """Per-link joint values (..., n_links) incl. mimic/locked routing."""
+    gather = torch.as_tensor(
+        [max(d, 0) for d in params.dof_idx], dtype=torch.long, device=q.device
+    )
+    return params.mimic_mult * q[..., gather] + params.mimic_offset
+
+
+def _local_transforms(
+    params: KinematicsParams, vals: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(R_local (..., L, 3, 3), p_local (..., L, 3)) for every link."""
+    jt = np.asarray(params.joint_type)
+    rev = torch.as_tensor(
+        (jt == JOINT_REVOLUTE).astype(np.float32), device=vals.device
+    )
+    prism = torch.as_tensor(
+        (jt == JOINT_PRISMATIC).astype(np.float32), device=vals.device
+    )
+    axis = params.joint_axis  # (L, 3)
+    # Rodrigues for every link (fixed/prismatic links masked to identity).
+    Rj = qm.axis_angle_rotation_matrix(axis, vals * rev)  # (..., L, 3, 3)
+    pj = (prism[:, None] * axis) * vals[..., None]  # (..., L, 3)
+    R_local = params.fixed_rot @ Rj
+    p_local = (params.fixed_rot @ pj[..., None])[..., 0] + params.fixed_pos
+    return R_local, p_local
+
+
+def link_transforms(
+    params: KinematicsParams, q: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global link transforms: (..., L, 3, 3), (..., L, 3)."""
+    vals = joint_values(params, q)
+    R_local, p_local = _local_transforms(params, vals)
+
+    L = params.n_links
+    R_out: list = [None] * L
+    p_out: list = [None] * L
+    for i in params.levels[0]:
+        R_out[i] = R_local[..., i, :, :]
+        p_out[i] = p_local[..., i, :]
+    for level in params.levels[1:]:
+        idx = list(level)
+        parents = [params.parent_idx[i] for i in level]
+        Rp = torch.stack([R_out[p] for p in parents], dim=-3)  # (..., k, 3, 3)
+        pp = torch.stack([p_out[p] for p in parents], dim=-2)  # (..., k, 3)
+        Rg = Rp @ R_local[..., idx, :, :]
+        pg = (Rp @ p_local[..., idx, :, None])[..., 0] + pp
+        for n, i in enumerate(level):
+            R_out[i] = Rg[..., n, :, :]
+            p_out[i] = pg[..., n, :]
+    return torch.stack(R_out, dim=-3), torch.stack(p_out, dim=-2)
+
+
+def robot_spheres(
+    params: KinematicsParams, link_rot: torch.Tensor, link_pos: torch.Tensor
+) -> torch.Tensor:
+    """World-frame collision spheres (..., n_spheres, 4)."""
+    if params.n_spheres == 0:
+        return link_pos.new_zeros(tuple(link_pos.shape[:-2]) + (0, 4))
+    sl = list(params.sphere_link_idx)
+    R = link_rot[..., sl, :, :]  # (..., S, 3, 3)
+    p = link_pos[..., sl, :]  # (..., S, 3)
+    centers = (R @ params.sphere_centers[..., None])[..., 0] + p
+    radii = params.sphere_radii.expand(centers.shape[:-1])
+    return torch.cat([centers, radii[..., None]], dim=-1)
+
+
+def compute_kinematics(
+    params: KinematicsParams,
+    q: torch.Tensor,
+    compute_jacobian: bool = False,
+) -> KinematicsState:
+    """Single public FK entry point."""
+    from curobo_tpu_torch.util.checks import check_joint_config
+
+    if compute_jacobian:
+        raise NotImplementedError(
+            "compute_kinematics(compute_jacobian=True): the analytic Jacobian "
+            "is not ported yet"
+        )
+    q = check_joint_config("q", q, params.n_dof)
+    link_rot, link_pos = link_transforms(params, q)
+    ti = list(params.tool_frame_idx)
+    tool_R = link_rot[..., ti, :, :]
+    tool_p = link_pos[..., ti, :]
+    tool_pose = Pose(tool_p, qm.matrix_to_quat(tool_R))
+    spheres = robot_spheres(params, link_rot, link_pos)
+    return KinematicsState(
+        link_rot=link_rot, link_pos=link_pos, tool_pose=tool_pose, spheres=spheres
+    )
+
+
+class Kinematics:
+    """Thin OO facade over the functional FK core."""
+
+    def __init__(self, params: KinematicsParams, visuals=None, asset_root=""):
+        self.params = params
+        # host-side visual-mesh metadata (never opened on this path)
+        self.visuals = visuals or {}
+        self.asset_root = asset_root
+
+    @staticmethod
+    def from_robot_config(cfg, device=None) -> "Kinematics":
+        from curobo_tpu_torch.robot.model import build_kinematics_params
+
+        visuals = {
+            l.name: l.visual for l in cfg.links if getattr(l, "visual", None)
+        }
+        return Kinematics(
+            build_kinematics_params(cfg, device=device),
+            visuals=visuals,
+            asset_root=getattr(cfg, "asset_root", ""),
+        )
+
+    @staticmethod
+    def from_robot_yaml(path: str, device=None) -> "Kinematics":
+        from curobo_tpu_torch.robot.model import RobotModelConfig
+
+        return Kinematics.from_robot_config(
+            RobotModelConfig.from_yaml(path), device=device
+        )
+
+    @property
+    def n_dof(self) -> int:
+        return self.params.n_dof
+
+    @property
+    def joint_names(self):
+        return self.params.joint_names
+
+    @property
+    def device(self) -> torch.device:
+        return self.params.device
+
+    def compute_kinematics(self, q, compute_jacobian: bool = False) -> KinematicsState:
+        return compute_kinematics(self.params, q, compute_jacobian)
+
+    def tool_pose(self, q) -> Pose:
+        return self.compute_kinematics(q).tool_pose

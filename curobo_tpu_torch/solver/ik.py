@@ -1,0 +1,242 @@
+"""Collision-free batched inverse kinematics solver.
+
+Counterpart of `curobo_tpu/solver/ik.py`, kernel route only: goal buffer ->
+seeds -> one `ik_solve` launch (pose-only warm-up, optional MPPI, L-BFGS,
+metrics, all inside the kernel) -> per-problem best-seed selection. Seeds fold
+into the batch axis. What the kernel route does not serve (goal sets, per-tool
+weights, c-space goals, voxel worlds, the LM seed stage) raises
+`NotImplementedError` until the route that serves it is ported; nothing falls
+back to another path. There is no per-world kernel cache: obstacle capacities
+are launch arguments of the kernels and nothing is compiled per world.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from curobo_tpu_torch import runtime
+from curobo_tpu_torch.cost import terms
+from curobo_tpu_torch.geom import world as world_mod
+from curobo_tpu_torch.ops import ik_kernels
+from curobo_tpu_torch.opt.lbfgs import LBFGSConfig
+from curobo_tpu_torch.opt.mppi import MPPIConfig
+from curobo_tpu_torch.robot.params import KinematicsParams
+from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRolloutConfig
+from curobo_tpu_torch.types.pose import Pose
+from curobo_tpu_torch.util.sampling import halton_sequence
+
+BIG = 1.0e8
+
+
+@dataclasses.dataclass(frozen=True)
+class IKConfig:
+    n_seeds: int = 32
+    # kept for parity of fields with the reference; this package has the
+    # kernel route only
+    use_blast: bool = True
+    use_pallas: bool = True
+    use_particle_stage: bool = True
+    # gradient (L-BFGS) polish stage; read by the non-kernel route only: as
+    # in the reference, the kernel route always runs its L-BFGS stage
+    use_gradient_stage: bool = True
+    # LM seed-IK warm start (not ported: True raises)
+    use_lm_seed: bool = False
+    lm_seed_iters: int = 10
+    lm_step_clip: float = 0.5
+    lm_seed_pool: int = 0
+    # pose-only (no collision terms) in-kernel L-BFGS stage before
+    # MPPI/L-BFGS: seeds land near the pose manifold before the expensive
+    # stages, at no extra launch
+    warmup_iters: int = 0
+    # in-kernel backtracking line-search budget (evals per L-BFGS iter);
+    # the candidate ladder is ls_base * ls_ratio**k, k < kernel_linesearch
+    kernel_linesearch: int = 6
+    kernel_ls_base: float = 1.5
+    kernel_ls_ratio: float = 0.45
+    mppi: MPPIConfig = MPPIConfig(n_particles=32, n_iters=8, init_std=0.6)
+    lbfgs: LBFGSConfig = LBFGSConfig(history=12, n_iters=40)
+    # IK treats scene collision as a constraint at contact (activation 0),
+    # not a standoff: a nonzero activation pushes goals within `activation`
+    # of an obstacle off the pose target.
+    rollout: RobotRolloutConfig = RobotRolloutConfig(
+        collision_cost=terms.CollisionCostConfig(weight=500.0, activation_distance=0.0)
+    )
+    position_threshold: float = 0.005
+    rotation_threshold: float = 0.05
+
+    @staticmethod
+    def from_yaml(path_or_dict) -> "IKConfig":
+        from curobo_tpu_torch.util.config_io import dataclass_from_dict, load_yaml
+
+        return dataclass_from_dict(IKConfig, load_yaml(path_or_dict))
+
+
+@dataclasses.dataclass(frozen=True)
+class IKResult:
+    """Per-problem best solution + per-seed data for downstream seeding."""
+
+    solution: torch.Tensor  # (B, D)
+    success: torch.Tensor  # (B,) bool
+    position_error: torch.Tensor  # (B,)
+    rotation_error: torch.Tensor  # (B,)
+    cost: torch.Tensor  # (B,)
+    seed_solutions: torch.Tensor  # (B, S, D) all optimized seeds
+    seed_success: torch.Tensor  # (B, S) bool
+
+
+class IKSolver:
+    """Batched collision-aware IK. Build once per (robot, config); the world
+    and goals are per-call arguments. ``device=None`` is the CUDA device and
+    raises when there is none."""
+
+    def __init__(self, params: KinematicsParams, cfg: IKConfig = IKConfig(), device=None):
+        self.device = runtime.resolve_device(device)
+        if cfg.use_lm_seed:
+            raise NotImplementedError(
+                "IKConfig.use_lm_seed=True: the LM seed-IK stage (opt/lm.py) is "
+                "not ported yet; use warmup_iters for the in-kernel warm start"
+            )
+        self.params = params.to(self.device)
+        self.cfg = cfg
+        self._ik_cost = ik_kernels.IKCost(self.params, cfg.rollout, self.device)
+        lb, mp = cfg.lbfgs, cfg.mppi
+        self._solve_kernel = self._ik_cost.build_solver(
+            mppi_iters=mp.n_iters if cfg.use_particle_stage else 0,
+            n_particles=mp.n_particles,
+            init_std=float(mp.init_std),
+            std_decay=mp.std_decay,
+            min_std=mp.min_std,
+            temperature=mp.temperature,
+            step_size=mp.step_size,
+            lbfgs_iters=lb.n_iters,
+            history=lb.history,
+            max_step=lb.max_step,
+            warmup_iters=cfg.warmup_iters,
+            n_linesearch=cfg.kernel_linesearch,
+            ls_base=cfg.kernel_ls_base,
+            ls_ratio=cfg.kernel_ls_ratio,
+        )
+        # Halton seed bank in joint space (host constant, float64 as drawn).
+        self._seed_bank = halton_sequence(max(cfg.n_seeds - 1, 1), params.n_dof)
+
+    # ------------------------------------------------------------------
+    def generate_seeds(
+        self, batch: int, seed_state: Optional[torch.Tensor] = None, n: Optional[int] = None
+    ) -> torch.Tensor:
+        """(B, S, D): seed 0 = retract (or provided state), rest Halton."""
+        p = self.params
+        S = n if n is not None else self.cfg.n_seeds
+        # clamp unbounded (continuous) angular joints to +-pi for seeding
+        lo_c, hi_c = p.dof_clip_bounds(angular_cap=np.pi)
+        if S - 1 > self._seed_bank.shape[0]:
+            self._seed_bank = halton_sequence(S - 1, p.n_dof)
+        bank = self._seed_bank[: S - 1].astype(np.float32)
+        halton = torch.as_tensor(lo_c + (hi_c - lo_c) * bank, device=self.device)
+        first = p.retract_config if seed_state is None else seed_state.to(self.device)
+        first = first.expand(batch, p.n_dof)
+        rest = halton.expand(batch, S - 1, p.n_dof)
+        return torch.cat([first[:, None], rest], dim=1)
+
+    # ------------------------------------------------------------------
+    def _solve_impl(
+        self,
+        world: world_mod.WorldData,
+        goal: Goal,
+        seeds: torch.Tensor,  # (B, S, D)
+        seed: int,
+        noise: Optional[torch.Tensor] = None,
+    ) -> IKResult:
+        cfg = self.cfg
+        B, S, D = seeds.shape
+        goal_s = goal.tile_seeds(S)
+        goal7 = torch.cat(
+            [goal_s.goal_pos[..., 0, :, :], goal_s.goal_quat[..., 0, :, :]], dim=-1
+        ).reshape(B * S, 7)
+        q, c, pe, re, fe = self._solve_kernel(
+            goal7.contiguous(), seeds.reshape(B * S, D).contiguous(), seed, world, noise
+        )
+        x = q.reshape(B, S, D)
+        cost = c.reshape(B, S)
+        pos_err = pe.reshape(B, S)
+        rot_err = re.reshape(B, S)
+        feasible = fe.reshape(B, S) > 0.5
+
+        conv = (
+            (pos_err <= cfg.position_threshold)
+            & (rot_err <= cfg.rotation_threshold)
+            & feasible
+        )
+        score = torch.where(conv, cost, BIG + pos_err)
+        best = torch.argmin(score, dim=-1)  # (B,)
+
+        def take(a):
+            idx = best.reshape((B, 1) + (1,) * (a.ndim - 2)).expand((B, 1) + tuple(a.shape[2:]))
+            return torch.gather(a, 1, idx)[:, 0]
+
+        return IKResult(
+            solution=take(x),
+            success=take(conv),
+            position_error=take(pos_err),
+            rotation_error=take(rot_err),
+            cost=take(cost),
+            seed_solutions=x,
+            seed_success=conv,
+        )
+
+    # ------------------------------------------------------------------
+    def solve_pose(
+        self,
+        world: world_mod.WorldData,
+        goal_pose: Pose,  # batch (B,) or (B, T); or a prepared Goal
+        seed: int = 0,
+        seed_state: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> IKResult:
+        """Solve batched IK for tool pose goals.
+
+        seed: integer key of the MPPI stage's generator. noise: optional
+        pre-drawn standard normals (mppi_iters, n_particles, B * n_seeds, D)
+        used instead of the generator.
+        """
+        from curobo_tpu_torch.util.checks import check_joint_config, check_pose_batch
+
+        if isinstance(goal_pose, Goal):
+            goal = goal_pose
+        else:
+            check_pose_batch("goal_pose", goal_pose)
+            goal = Goal.from_pose(goal_pose.to(self.device))
+        if seed_state is not None:
+            seed_state = check_joint_config("seed_state", seed_state, self.params.n_dof)
+        if goal.goal_pos.shape[-3] != 1:
+            raise NotImplementedError(
+                "solve_pose: a goal_set (more than one goal per tool) needs the "
+                "non-kernel route, which is not ported yet"
+            )
+        if goal.goal_pos.shape[-2] != self.params.n_tools:
+            raise ValueError(
+                f"goal has {goal.goal_pos.shape[-2]} tool frames, robot has "
+                f"{self.params.n_tools}"
+            )
+        if goal.tool_weight is not None or goal.tool_tolerance is not None:
+            raise NotImplementedError(
+                "solve_pose: per-tool weights/tolerances (tool_weight) need the "
+                "non-kernel route, which is not ported yet"
+            )
+        if goal.goal_cspace is not None:
+            raise NotImplementedError(
+                "solve_pose: c-space goals (goal_cspace) need the non-kernel "
+                "route, which is not ported yet"
+            )
+        if not ik_kernels.world_is_supported(world):
+            raise NotImplementedError(
+                "solve_pose: voxel-grid worlds need the non-kernel route, which "
+                "is not ported yet"
+            )
+        if world.device != self.device:
+            raise ValueError(f"world lies on {world.device}, solver on {self.device}")
+        seeds = self.generate_seeds(goal.batch, seed_state)
+        return self._solve_impl(world, goal, seeds, seed, noise)

@@ -1,0 +1,36 @@
+"""Low-discrepancy samplers (numpy, host side).
+
+Own copy of the numpy part of `curobo_tpu/util/sampling.py`: the Halton
+sequence is float64 numpy in both packages, so the IK seeds are bit-identical.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_PRIMES = np.array(
+    [2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59, 61, 67,
+     71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127, 131, 137, 139,
+     149, 151, 157, 163, 167, 173, 179, 181, 191, 193, 197, 199, 211, 223,
+     227, 229, 233, 239, 241, 251, 257, 263, 269, 271, 277, 281, 283, 293],
+    dtype=np.int64,
+)
+
+
+def halton_sequence(n: int, dim: int, skip: int = 20) -> np.ndarray:
+    """(n, dim) Halton points in (0, 1). Host-side numpy, deterministic."""
+    if dim > len(_PRIMES):
+        raise ValueError(f"halton dim {dim} > {len(_PRIMES)} supported")
+    out = np.zeros((n, dim), dtype=np.float64)
+    idx = np.arange(skip, skip + n, dtype=np.int64)
+    for d in range(dim):
+        b = _PRIMES[d]
+        i = idx.copy()
+        f = np.ones(n)
+        r = np.zeros(n)
+        while np.any(i > 0):
+            f = f / b
+            r = r + f * (i % b)
+            i = i // b
+        out[:, d] = r
+    return out
