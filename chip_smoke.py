@@ -4,12 +4,16 @@
     python3 chip_smoke.py            # every phase (needs one CUDA device)
     python3 chip_smoke.py --quick    # build + kernel comparisons only
 
-Builds the CUDA kernels from the sources in this checkout, holds each kernel
-against its plain PyTorch version on the card at the shapes of the main path
-(Franka, 100 goals x 32 seeds = 3200 configurations), then drives the main
-path through the public entry points (`Kinematics.from_robot_yaml` ->
-`compile_scene` -> `IKSolver.solve_pose`) and checks the results. Every line
-of output is one JSON object, except the line with the card's name and power
+Builds the CUDA kernels from the sources in this checkout and holds each
+kernel against its plain PyTorch version on the card at the shapes of its
+path: the IK kernels at 3200 Franka configurations (100 goals x 32 seeds), the
+trajectory kernels at 1024 Franka trajectories (spline 5, 16, 32) in the
+motion suite's worlds. Then it drives the two main paths through the public
+entry points and checks the results: collision-free IK
+(`Kinematics.from_robot_yaml` -> `compile_scene` -> `IKSolver.solve_pose`,
+phase `solve`) and motion generation (`MotionPlanner.plan_pose` over the 90
+problems of `content/problems/franka_motion.json`, phase `plan`). Every line of
+output is one JSON object, except the line with the card's name and power
 limit. Exits non-zero on the first failed phase, and when there is no CUDA
 device.
 """
@@ -23,6 +27,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -33,11 +38,14 @@ import curobo_tpu_torch as ct
 from curobo_tpu_torch.geom import types as gt
 from curobo_tpu_torch.ops import build as kbuild
 from curobo_tpu_torch.ops import ik_kernels as ikk
+from curobo_tpu_torch.ops import traj_kernels as tk
 from curobo_tpu_torch.opt.lbfgs import LBFGSConfig, LineSearchConfig
-from curobo_tpu_torch.opt.mppi import MPPIConfig
+from curobo_tpu_torch.opt.mppi import MPPIConfig, smooth_sample_transform
+from curobo_tpu_torch.transition.bspline import BSplineTransition
 
 DEV = torch.device("cuda", 0)
 N_GOALS, N_SEEDS = 100, 32
+N_TRAJ = 1024  # trajectories of the trajectory-kernel comparisons
 
 # Published peaks of one H100 SXM: float32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67.0e12
@@ -247,6 +255,384 @@ def compare_solve(tab, world_tabs, goal7, x0, budget, label, seed=0, noise=None,
     return res, out_k
 
 
+# ---------------------------------------------------------------------------
+# Trajectory kernels: inputs from the motion suite, comparisons
+# ---------------------------------------------------------------------------
+def motion_suite():
+    with open(ct.content_path("problems", "franka_motion.json")) as fh:
+        return json.load(fh)
+
+
+def motion_world(spec, cap):
+    return ct.compile_scene(
+        gt.Scene().add(*[gt.Cuboid(**o) for o in spec["cuboids"]]), capacities={"cuboid": cap}
+    )
+
+
+def traj_inputs(tr, problems, n, gen, pin, start_noise=0.05, end_noise=0.05, knot_noise=0.05):
+    """n trajectories around the suite's start and goal configurations (goal
+    pose = the problem's; the oracle goal configuration reaches it), straight
+    seeds with knot noise, dt in [0.02, 0.1] -> (goal7, x, q_start, q_end, dt)
+    on the card."""
+    idx = [i % len(problems) for i in range(n)]
+    f32 = dict(dtype=torch.float32)
+    qs = torch.tensor([problems[i]["q_start"] for i in idx], **f32)
+    qe = torch.tensor([problems[i]["q_goal_oracle"] for i in idx], **f32)
+    goal7 = torch.tensor([problems[i]["goal_pose"] for i in idx], **f32)
+    qs = qs + start_noise * torch.randn(qs.shape, generator=gen)
+    qe = qe + end_noise * torch.randn(qe.shape, generator=gen)
+    free = tr.linear_seed(qs, qe, q_goal_pinned=pin)
+    free = free + knot_noise * torch.randn(free.shape, generator=gen)
+    dt = 0.02 + 0.08 * torch.rand((n,), generator=gen)
+    return tuple(t.to(DEV).contiguous() for t in (goal7, free.reshape(n, -1), qs, qe, dt))
+
+
+def chunked(fn, args, chunk=256):
+    """fn over row chunks of the (NP, ...) tensors in args (None passes
+    through); tuple outputs are concatenated per position."""
+    NP = args[0].shape[0]
+    parts = []
+    for i in range(0, NP, chunk):
+        parts.append(fn(*(None if a is None else a[i:i + chunk] for a in args)))
+    if isinstance(parts[0], tuple):
+        return tuple(None if p[0] is None else torch.cat(list(p), dim=0) for p in zip(*parts))
+    return torch.cat(parts, dim=0)
+
+
+def compare_traj_cost_grad(tt, wt, inputs, label):
+    goal7, x, qs, qe, dt = inputs
+    qe = qe if tt.pin_goal else None
+    args = (goal7, x, qs, qe, dt)
+    c_k, g_k = tk.traj_cost_grad(tt, wt, *args, "grad")
+    c_f, _ = tk.traj_cost_grad(tt, wt, *args, "cost")
+    m_k = tk.traj_cost_grad(tt, wt, *args, "metrics")
+    torch.cuda.synchronize()
+    c_p, g_p = chunked(lambda *a: tk.traj_cost_grad_plain(tt, wt, *a, "grad"), args)
+    m_p = chunked(lambda *a: tk.traj_cost_grad_plain(tt, wt, *a, "metrics"), args)
+    for t in (c_k, g_k, *m_k):
+        if not torch.isfinite(t).all():
+            fail(f"traj_cost_grad[{label}] returned non-finite values")
+    c_med, c_p99 = rel_stats(c_k, c_p, 1e-2)
+    g_med, g_p99 = rel_stats(g_k, g_p, 1.0)
+    pe_med, pe_p99 = rel_stats(m_k[1], m_p[1], 1e-4)
+    re_med, re_p99 = rel_stats(m_k[2], m_p[2], 1e-4)
+    dt_med, dt_p99 = rel_stats(m_k[4], m_p[4], 1e-4)
+    out = dict(case=label, cost_rel_median=c_med, cost_rel_p99=c_p99, grad_rel_median=g_med,
+               grad_rel_p99=g_p99, pos_err_rel_median=pe_med, pos_err_rel_p99=pe_p99,
+               rot_err_rel_median=re_med, rot_err_rel_p99=re_p99, dt_retimed_rel_median=dt_med,
+               dt_retimed_rel_p99=dt_p99,
+               feasible_agree_frac=float(((m_k[3] > 0.5) == (m_p[3] > 0.5)).float().mean()),
+               feasible_frac=float((m_k[3] > 0.5).float().mean()),
+               cost_modes_max_rel=float(((c_f - c_k).abs().max() + (m_k[0] - c_k).abs().max())
+                                        / c_k.abs().max()),
+               max_abs_err=float((c_k - c_p).abs().max()))
+    meds = (c_med, g_med, pe_med, re_med, dt_med)
+    p99s = (c_p99, g_p99, pe_p99, re_p99, dt_p99)
+    if not (max(meds) < COST_MED and max(p99s) < COST_P99):
+        fail(f"traj_cost_grad[{label}] disagrees with its plain version: {out}")
+    # feasibility reads a clearance against 0: a step at contact can flip on
+    # another summation order, a wrong term would flip many trajectories
+    if out["feasible_agree_frac"] < 0.99:
+        fail(f"traj_cost_grad[{label}] feasibility disagrees with its plain version: {out}")
+    if out["cost_modes_max_rel"] > 1e-5:
+        fail(f"traj_cost_grad[{label}] cost, grad and metrics modes disagree: {out}")
+    return out
+
+
+def traj_converged(pe, re, fe):
+    return (pe <= 0.005) & (re <= 0.05) & (fe > 0.5)
+
+
+def compare_traj_solve(tt, wt, inputs, budget, label, seed=0, noise=None, plain_noise=None,
+                       eps_smooth=None, strict=True):
+    goal7, x, qs, qe, dt = inputs
+    qe = qe if tt.pin_goal else None
+    out_k = tk.traj_solve(tt, wt, goal7, x, qs, qe, dt, budget, seed, noise, eps_smooth)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p = tk.traj_solve_plain(tt, wt, goal7, x, qs, qe, dt, budget, seed,
+                                noise if plain_noise is None else plain_noise, eps_smooth)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for t in out_k:
+        if not torch.isfinite(t).all():
+            fail(f"traj_solve[{label}] returned non-finite values")
+    xk, ck, pek, rek, fek, dtk = out_k
+    xp, cp, pep, rep, fep, dtp = out_p
+    rel_c = (ck - cp).abs() / (cp.abs() + 1e-2)
+    dx = (xk - xp).abs().amax(dim=-1)
+    res = dict(
+        case=label, trajectories=int(x.shape[0]), cost_rel_median=float(rel_c.median()),
+        x_agree_frac=float((dx < LOOP_X_TOL).float().mean()),
+        feasible_agree_frac=float(((fek > 0.5) == (fep > 0.5)).float().mean()),
+        conv_frac_kernel=float(traj_converged(pek, rek, fek).float().mean()),
+        conv_frac_plain=float(traj_converged(pep, rep, fep).float().mean()),
+        max_abs_err_cost=float((ck - cp).abs().max()),
+        max_abs_err_x=float(dx.max()), plain_ms=plain_s * 1e3,
+    )
+    if strict:
+        if not (res["cost_rel_median"] < LOOP_COST_MED and res["x_agree_frac"] >= LOOP_X_FRAC):
+            fail(f"traj_solve[{label}] disagrees with its plain version: {res}")
+    elif abs(res["conv_frac_kernel"] - res["conv_frac_plain"]) > 0.02:
+        fail(f"traj_solve[{label}] converges on another share than its plain version: {res}")
+    return res, out_k
+
+
+def traj_compare(kin, suite):
+    """Both trajectory kernels against their plain versions: Franka, the full
+    spline (5, 16, 32), N_TRAJ trajectories in the motion suite's worlds
+    (16-cuboid capacity); pin_goal and the speed metric on and off."""
+    problems = suite["problems"]
+    cap = suite["cuboid_capacity"]
+    by_scen = {}
+    for i, p in enumerate(problems):
+        by_scen.setdefault(p["scenario"], []).append(i)
+    tcfg = ct.TrajOptConfig()
+    tr = BSplineTransition(tcfg.bspline)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+
+    def rollout(speed):
+        return dataclasses.replace(tcfg.rollout, collision_cost=dataclasses.replace(
+            tcfg.rollout.collision_cost, speed_metric=speed))
+
+    cases = [(True, False, "tabletop"), (False, False, "shelf"), (True, True, "cubby"),
+             (False, True, "shelf")]
+    cg = []
+    for k, (pin, speed, scen) in enumerate(cases):
+        pi = by_scen[scen][k % len(by_scen[scen])]
+        wt = ikk.pack_world_arrays(motion_world(problems[pi]["world"], cap))
+        tt = tk.build_traj_tables(kin.params, rollout(speed), tcfg.bspline, pin, DEV)
+        inputs = traj_inputs(tr, problems, N_TRAJ, gen, pin)
+        cg.append(compare_traj_cost_grad(
+            tt, wt, inputs, f"{scen} world, pin_goal={pin}, speed_metric={speed}"))
+
+    # the solver loop at shallow budgets, on the default objective
+    tt = tk.build_traj_tables(kin.params, tcfg.rollout, tcfg.bspline, True, DEV)
+    wt = ikk.pack_world_arrays(motion_world(problems[by_scen["shelf"][0]]["world"], cap))
+    inputs = traj_inputs(tr, problems, N_TRAJ, gen, True)
+    shallow = tk.TrajSolveBudget(mppi_iters=0, lbfgs_iters=3, history=4, n_linesearch=2)
+    shallow_mppi = dataclasses.replace(shallow, mppi_iters=2, n_particles=4)
+    noise = torch.randn((2, 4, N_TRAJ, tt.nfD), generator=gen).to(DEV)
+    L = smooth_sample_transform(tt.n_free, kin.n_dof).to(DEV)
+    sv = [compare_traj_solve(tt, wt, inputs, shallow, "lbfgs 3")[0],
+          compare_traj_solve(tt, wt, inputs, shallow_mppi, "mppi 2x4 + lbfgs 3, injected noise",
+                             noise=noise)[0],
+          compare_traj_solve(tt, wt, inputs, shallow_mppi,
+                             "mppi 2x4 + lbfgs 3, injected noise, eps_smooth", noise=noise,
+                             eps_smooth=L)[0]]
+    z_k = tk.traj_philox_normal(7, N_TRAJ, 2, 4, tt.nfD, DEV)
+    z_p = ikk.philox_normal_plain(7, N_TRAJ, 2, 4, tt.nfD, DEV)
+    torch.cuda.synchronize()
+    philox = dict(max_abs_vs_plain=float((z_k - z_p).abs().max()), mean=float(z_k.mean()),
+                  var=float(z_k.var()), n=int(z_k.numel()))
+    if philox["max_abs_vs_plain"] > 1e-3:
+        fail(f"traj_philox_normal kernel disagrees with its plain version: {philox}")
+    sv.append(compare_traj_solve(tt, wt, inputs, shallow_mppi,
+                                 "mppi 2x4 + lbfgs 3, in-kernel philox, eps_smooth", seed=7,
+                                 plain_noise=z_k, eps_smooth=L)[0])
+    return dict(traj_cost_grad=cg, traj_solve=sv, traj_philox=philox)
+
+
+def traj_budget_of(tcfg) -> tk.TrajSolveBudget:
+    """The `traj_solve` budget `TrajOptSolver` launches with."""
+    mp, lb = tcfg.mppi, tcfg.lbfgs
+    return tk.TrajSolveBudget(
+        mppi_iters=mp.n_iters if tcfg.use_particle_stage else 0, n_particles=mp.n_particles,
+        init_std=mp.init_std, std_decay=mp.std_decay, min_std=mp.min_std,
+        temperature=mp.temperature, step_size=mp.step_size, lbfgs_iters=lb.n_iters,
+        history=lb.history, max_step=lb.max_step,
+    )
+
+
+def compare_traj_full(kin, suite, n_per=128):
+    """`traj_solve` at the trajectory optimizer's budget against its plain
+    version, held to its outcome: 8 problems of the suite (every scenario), 128
+    trajectories each from the problem's start to its goal configuration,
+    straight seeds with knot noise."""
+    problems = suite["problems"]
+    tcfg = ct.TrajOptConfig()
+    tr = BSplineTransition(tcfg.bspline)
+    tt = tk.build_traj_tables(kin.params, tcfg.rollout, tcfg.bspline, True, DEV)
+    budget = traj_budget_of(tcfg)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    outs_k, outs_p, plain_s = [], [], 0.0
+    for pi in (0, 13, 26, 39, 45, 60, 75, 85)[: len(problems) // 11]:
+        wt = ikk.pack_world_arrays(motion_world(problems[pi]["world"], suite["cuboid_capacity"]))
+        goal7, x, qs, qe, dt = traj_inputs(tr, [problems[pi]], n_per, gen, True, start_noise=0.0,
+                                           end_noise=0.0, knot_noise=0.1)
+        outs_k.append(tk.traj_solve(tt, wt, goal7, x, qs, qe, dt, budget))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs_p.append(tk.traj_solve_plain(tt, wt, goal7, x, qs, qe, dt, budget))
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+    cat = lambda outs, i: torch.cat([o[i] for o in outs])
+    ck, cp = cat(outs_k, 1), cat(outs_p, 1)
+    conv_k = traj_converged(cat(outs_k, 2), cat(outs_k, 3), cat(outs_k, 4))
+    conv_p = traj_converged(cat(outs_p, 2), cat(outs_p, 3), cat(outs_p, 4))
+    dx = (cat(outs_k, 0) - cat(outs_p, 0)).abs().amax(dim=-1)
+    res = dict(case="trajopt budget (L-BFGS 56, history 15, line search 5)", trajectories=int(ck.numel()),
+               conv_frac_kernel=float(conv_k.float().mean()),
+               conv_frac_plain=float(conv_p.float().mean()),
+               cost_rel_median=float(((ck - cp).abs() / (cp.abs() + 1e-2)).median()),
+               x_agree_frac=float((dx < LOOP_X_TOL).float().mean()), plain_ms=plain_s * 1e3)
+    if abs(res["conv_frac_kernel"] - res["conv_frac_plain"]) > 0.02:
+        fail(f"traj_solve converges on another share than its plain version: {res}")
+    return res
+
+
+def traj_eval_flops(tt: tk.TrajTables, world_tabs, grad: bool) -> float:
+    """Float operations of one trajectory evaluation: per step FK, the
+    self-collision pairs and the swept scene term (live spheres x K samples x
+    enabled obstacles), bounds and smoothness; the terminal pose; with the
+    gradient the reverse pass and the knot gradient."""
+    tab = tt.ik
+    n_rev = sum(1 for kind, _, _ in tab.link_host if kind == 1)
+    fk = tab.L * (45 + 18) + n_rev * (30 + 45)
+    spline = 4 * 2 * tt.n_ctrl * tt.D
+    n_live = int((tab.sph_f[:, 3] >= 0).sum())
+    kc, ks, kp, ky = (int((t[:, -1] > 0.5).sum()) for t in world_tabs)
+    scene = n_live * tt.K * (kc * 45 + ks * 12 + kp * 32 + ky * 50 + 10)
+    step = spline + fk + tab.S * 18 + tab.P * 12 + scene + 30 * tt.D
+    f = tt.H * step + 120
+    if grad:
+        f += tt.H * (tab.L * 30 + tab.S * 15 + n_live * tt.K * 12) + 40
+        f += tt.H * 4 * 2 * tt.nfD
+    return float(f)
+
+
+def traj_solve_flops(tt, world_tabs, b: tk.TrajSolveBudget) -> float:
+    e = lambda grad: traj_eval_flops(tt, world_tabs, grad)
+    f = 0.0
+    if b.mppi_iters > 0:
+        f += (2 + b.mppi_iters * b.n_particles) * e(False)
+    f += e(True) + b.lbfgs_iters * (b.n_linesearch * e(False) + e(True))
+    return f + e(False)
+
+
+def problem_inputs(kin, p, cap):
+    world = motion_world(p["world"], cap)
+    goal = ct.Pose(torch.tensor([p["goal_pose"][:3]], device=DEV),
+                   torch.tensor([p["goal_pose"][3:]], device=DEV))
+    start = ct.JointState.from_position(torch.tensor([p["q_start"]], device=DEV), kin.joint_names)
+    return world, goal, start
+
+
+KERNEL_COUNTS = {"ik_solve": ikk.ik_solve, "ik_cost_grad": ikk.ik_cost_grad,
+                 "traj_solve": tk.traj_solve, "traj_cost_grad": tk.traj_cost_grad}
+
+
+def reset_counts():
+    for fn in KERNEL_COUNTS.values():
+        fn.launches = 0
+
+
+def counts():
+    return {k: fn.launches for k, fn in KERNEL_COUNTS.items()}
+
+
+def plan_phase(kin, suite, t_start, deadline_s=780.0):
+    """The main path of motion generation: `MotionPlanner(kin.params)` with the
+    default `MotionPlanConfig()`, one plan per problem of the suite (B = 1),
+    after a warm-up of two problems and one unreachable goal (the retry path
+    with PRM graph seeding). Returns (summary, launches of the main path)."""
+    problems, cap = suite["problems"], suite["cuboid_capacity"]
+    planner = ct.MotionPlanner(kin.params)
+    n_to = planner.cfg.trajopt.finetune_attempts + 1
+
+    def run(p, seed, attribute=False):
+        world, goal, start = problem_inputs(kin, p, cap)
+        t0 = time.perf_counter()
+        res = planner.plan_pose(world, goal, start, seed=seed, attribute=attribute)
+        res.trajectory.position.cpu()  # the result on the host ends the plan
+        return res, time.perf_counter() - t0, goal, start
+
+    for i in range(2):
+        run(problems[i], 1000 + i)
+    far = dict(problems[0])
+    far["goal_pose"] = [2.5, 2.5, 2.5] + list(far["goal_pose"][3:])
+    res_far, _, _, _ = run(far, 999)
+    if planner.last_attempts != planner.cfg.max_attempts or bool(res_far.success.any()):
+        fail(f"unreachable goal: attempts {planner.last_attempts}, success {res_far.success}")
+    if not torch.isfinite(res_far.trajectory.position).all():
+        fail("unreachable goal: non-finite trajectory")
+
+    reset_counts()
+    rows, cut = [], False
+    for i, p in enumerate(problems):
+        if i >= 30 and time.perf_counter() - t_start > deadline_s:
+            cut = True
+            break
+        before = counts()
+        res, dt_wall, goal, start = run(p, i)
+        A = planner.last_attempts
+        d = {k: v - before[k] for k, v in counts().items()}
+        if d["ik_solve"] != A or d["traj_solve"] != n_to * A or d["traj_cost_grad"] < A:
+            fail(f"problem {i}: {A} attempts launched {d}")
+        st = res.solver_trajectory
+        for name, t in (("trajectory", res.trajectory.position), ("solver position", st.position),
+                        ("solver velocity", st.velocity), ("solver jerk", st.jerk),
+                        ("position_error", res.position_error), ("motion_time", res.motion_time)):
+            if not torch.isfinite(t).all():
+                fail(f"problem {i}: {name} has non-finite values")
+        ok = bool(res.success[0])
+        if ok:
+            q0 = start.position[0]
+            d0 = max(float((st.position[0, 0] - q0).abs().max()),
+                     float((res.trajectory.position[0, 0] - q0).abs().max()))
+            if d0 > 1e-5:
+                fail(f"problem {i}: the trajectory starts {d0} rad from q_start")
+            tp = kin.tool_pose(st.position[:, -1])
+            pe = float((tp.position.reshape(-1, 3)[0] - goal.position[0]).norm())
+            dot = float((tp.quaternion.reshape(-1, 4)[0] * goal.quaternion[0]).sum().abs())
+            re = 2.0 * float(torch.acos(torch.clamp(torch.tensor(dot), max=1.0)))
+            if pe > 0.005 + 1e-4 or re > 0.05 + 1e-4:
+                fail(f"problem {i}: terminal FK misses the goal by {pe} m, {re} rad")
+        q = st.position[0].cpu().numpy()
+        rows.append(dict(
+            scenario=p["scenario"], success=ok, plan_time=dt_wall, attempts=A,
+            position_error=float(res.position_error[0]), rotation_error=float(res.rotation_error[0]),
+            motion_time=float(res.motion_time[0]),
+            path_length=float(np.linalg.norm(np.diff(q, axis=0), axis=-1).sum()),
+            max_jerk=float(st.jerk[0].abs().max()),
+        ))
+    launches = counts()
+
+    okr = [r for r in rows if r["success"]]
+    t = np.asarray([r["plan_time"] for r in rows])
+    t1 = [r["plan_time"] for r in rows if r["attempts"] == 1]
+    mean_of = lambda k: float(np.mean([r[k] for r in okr])) if okr else -1.0
+    p98_of = lambda k: float(np.percentile([r[k] for r in okr], 98)) if okr else -1.0
+    summary = dict(
+        phase="plan", problems_run=len(rows), problems_in_suite=len(problems),
+        cut_by_deadline=cut, success_rate=len(okr) / len(rows),
+        plan_time_mean_ms=float(t.mean() * 1e3), plan_time_median_ms=float(np.median(t) * 1e3),
+        plan_time_p75_ms=float(np.percentile(t, 75) * 1e3),
+        plan_time_p98_ms=float(np.percentile(t, 98) * 1e3),
+        plan_time_first_attempt_p98_ms=float(np.percentile(t1, 98) * 1e3) if t1 else -1.0,
+        retry_rate=float(np.mean([r["attempts"] > 1 for r in rows])),
+        position_error_mm_mean=mean_of("position_error") * 1e3,
+        position_error_mm_p98=p98_of("position_error") * 1e3,
+        motion_time_mean_s=mean_of("motion_time"), motion_time_p98_s=p98_of("motion_time"),
+        path_length_mean=mean_of("path_length"), max_jerk_mean=mean_of("max_jerk"),
+        max_jerk_p98=p98_of("max_jerk"),
+        per_scenario={s: dict(n=sum(r["scenario"] == s for r in rows),
+                              success=float(np.mean([r["success"] for r in rows if r["scenario"] == s])))
+                      for s in sorted({r["scenario"] for r in rows})},
+        launches=launches, attempts=int(sum(r["attempts"] for r in rows)),
+    )
+    # per-phase attribution: the device synchronised after every phase
+    acc = {}
+    for i in range(min(6, len(problems))):
+        run(problems[i], i, attribute=True)
+        for k, v in planner.last_attribution.items():
+            acc.setdefault(k, []).append(v)
+    summary["attribution_mean_ms"] = {k: float(np.mean(v)) for k, v in sorted(acc.items())}
+    if summary["success_rate"] < 0.95:
+        fail(f"motion-generation success rate {summary['success_rate']} is under 0.95: {summary}")
+    return summary, launches, planner
+
+
 def main():
     quick = "--quick" in sys.argv[1:]
     t_start = time.perf_counter()
@@ -257,10 +643,10 @@ def main():
 
     # ---- build ------------------------------------------------------------
     secs = kbuild.build_all()
-    ptxas = [l.strip() for l in kbuild.build_log("ik_kernels").splitlines()
+    ptxas = [l.strip() for n in secs for l in kbuild.build_log(n).splitlines()
              if "registers" in l or "spill" in l or "Compiling entry" in l or "warning" in l.lower()]
     emit(dict(phase="build", seconds=secs, libraries=[kbuild.library_path(n) for n in secs],
-              ptxas=ptxas[:40]))
+              ptxas=ptxas[:80]))
 
     # ---- set-up -------------------------------------------------------------
     kin = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"))
@@ -324,6 +710,12 @@ def main():
                             plain_noise=z_k)[0])
     cmp["ik_solve"] = sv
     emit(cmp)
+    suite = motion_suite()
+    tcmp = traj_compare(kin, suite)
+    emit(dict(phase="compare_traj", limits=dict(
+        rel_median=COST_MED, rel_p99=COST_P99, feasible_agree_frac=0.99,
+        loop_cost_rel_median=LOOP_COST_MED, loop_x_agree_frac=LOOP_X_FRAC,
+        loop_x_tol=LOOP_X_TOL), **tcmp))
     if quick:
         emit(dict(phase="quick", seconds=time.perf_counter() - t_start))
         return
@@ -347,14 +739,37 @@ def main():
     sr_inj, sr_phx = problem_success(out_inj), problem_success(out_phx)
     if sr_phx < sr_inj - 0.02:
         fail(f"success with in-kernel noise {sr_phx} is lower than with injected noise {sr_inj}")
+    full_traj = compare_traj_full(kin, suite)
     emit(dict(phase="compare_full", bench=full_bench, default_injected=full_inj,
-              success_injected_noise=sr_inj, success_philox_noise=sr_phx))
+              success_injected_noise=sr_inj, success_philox_noise=sr_phx, traj_solve=full_traj))
 
     # ---- kernel timings at the main path's shapes -----------------------------------
     ms_cg = time_ms(lambda: ikk.ik_cost_grad(tab, wt, goal7, seeds, True), reps=20, warm=2)
     plain_cg = time_ms(lambda: ikk.ik_cost_grad_plain(tab, wt, goal7, seeds, True), reps=5)
     ms_solve = time_ms(lambda: ikk.ik_solve(tab, wt, goal7, seeds, bench_b, 0, None), reps=10)
     ms_solve_default = time_ms(lambda: ikk.ik_solve(tab, wt, goal7, seeds, default_b, 0, None), reps=5)
+    # the trajectory kernels at the planner's shapes: 4 seed trajectories of
+    # problem 0 (traj_solve at the trajopt budget) and the final check of one
+    # trajectory (traj_cost_grad, metrics mode)
+    tcfg = ct.TrajOptConfig()
+    tt = tk.build_traj_tables(kin.params, tcfg.rollout, tcfg.bspline, True, DEV)
+    traj_b = traj_budget_of(tcfg)
+    p0 = suite["problems"][0]
+    wt0 = ikk.pack_world_arrays(motion_world(p0["world"], suite["cuboid_capacity"]))
+    tr = BSplineTransition(tcfg.bspline)
+    g4 = torch.Generator(device="cpu").manual_seed(4)
+    in4 = traj_inputs(tr, [p0], 4, g4, True, start_noise=0.0, end_noise=0.01, knot_noise=0.0)
+    in1 = tuple(t[:1] for t in in4)
+    ms_ts = time_ms(lambda: tk.traj_solve(tt, wt0, *in4, traj_b), reps=5)
+    plain_ts = time_ms(lambda: tk.traj_solve_plain(tt, wt0, *in4, traj_b), reps=1, warm=0)
+    ms_tm = time_ms(lambda: tk.traj_cost_grad(tt, wt0, *in1, "metrics"), reps=20, warm=2)
+    plain_tm = time_ms(lambda: tk.traj_cost_grad_plain(tt, wt0, *in1, "metrics"), reps=5)
+    in1k = traj_inputs(tr, suite["problems"], N_TRAJ, g4, True)
+    ms_tg1k = time_ms(lambda: tk.traj_cost_grad(tt, wt0, *in1k, "grad"), reps=5)
+    # ik_solve at the planner's shape: one goal x 32 seeds, the default budget
+    g32 = in4[0][:1].expand(N_SEEDS, 7).contiguous()
+    s32 = solver.generate_seeds(1, in4[2][:1]).reshape(N_SEEDS, D).contiguous()
+    ms_ik32 = time_ms(lambda: ikk.ik_solve(tab, wt0, g32, s32, default_b, 0, None), reps=5)
 
     # ---- main path, twice: bench budget and the default IKConfig ----------------------
     ikk.ik_solve.launches = 0
@@ -414,11 +829,28 @@ def main():
     if launches["ik_solve"] != n_solves or launches["ik_cost_grad"] < 1:
         fail(f"main path did not go through the kernels: {launches}")
 
+    # ---- main path of motion generation: MotionPlanner.plan_pose over the suite ------
+    plan, plan_launches, _ = plan_phase(kin, suite, t_start)
+    # kernel time of a first attempt (one ik_solve, two traj_solve, one check)
+    # against the plan's wall time: the rest is host work and launch gaps
+    kernel_ms = ms_ik32 + 2 * ms_ts + ms_tm
+    plan["kernel_ms_per_first_attempt"] = kernel_ms
+    plan["device_idle_share_first_attempt"] = 1.0 - kernel_ms / plan["plan_time_median_ms"]
+    emit(plan)
+    for k in ("ik_solve", "traj_solve", "traj_cost_grad"):
+        if plan_launches[k] < 1:
+            fail(f"plan phase did not launch {k}: {plan_launches}")
+
     # ---- the kernels line ------------------------------------------------------------
     io_cg = N * (7 + D) * 4 + N * (1 + D) * 4
     io_solve = N * (7 + D) * 4 + N * (D + 4) * 4
     b_cg, by_cg = bound_ms(N * eval_flops(tab, wt, True, False), io_cg)
     b_sv, by_sv = bound_ms(N * solve_flops(tab, wt, bench_b), io_solve)
+    # bytes of one trajectory: goal, knots, start and end in; cost, metrics
+    # (and knots or gradient) out
+    io_traj = lambda n_out: (7 + tt.nfD + 2 * D + 1 + n_out) * 4
+    b_tm, by_tm = bound_ms(traj_eval_flops(tt, wt0, False), io_traj(5))
+    b_ts, by_ts = bound_ms(4 * traj_solve_flops(tt, wt0, traj_b), 4 * io_traj(5 + tt.nfD))
     kernels = [
         dict(name="ik_cost_grad", route="cuda",
              source="curobo_tpu_torch/ops/csrc/ik_kernels.cu",
@@ -448,7 +880,35 @@ def main():
              plain_ms_default_budget=full_inj["plain_ms"],
              bound_ms_default_budget=bound_ms(N * solve_flops(tab, wt, default_b), io_solve)[0],
              also_replaces=["curobo_tpu/ops/pallas_ik.py:1144",
-                            "curobo_tpu/ops/pallas_ik.py:1191"]),
+                            "curobo_tpu/ops/pallas_ik.py:1191"],
+             launches_plan_phase=plan_launches["ik_solve"],
+             ms_plan_shape=ms_ik32, plan_shape="N=32 (1 goal x 32 seeds), default budget"),
+        dict(name="traj_cost_grad", route="cuda",
+             source="curobo_tpu_torch/ops/csrc/traj_kernels.cu",
+             replaces="curobo_tpu/ops/pallas_traj.py:625",
+             launches=plan_launches["traj_cost_grad"],
+             max_abs_err=max(c["max_abs_err"] for c in tcmp["traj_cost_grad"]),
+             tolerance=f"relative error of cost, gradient, pose errors and retimed dt: median < "
+                       f"{COST_MED}, 99th percentile < {COST_P99}; feasibility equal on >= 0.99",
+             ms=ms_tm, plain_ms=plain_tm, bound_ms=b_tm, bound_by=by_tm, library_ms=None,
+             shape=f"NP=1 trajectory, spline (5, 16, 32), D={D}, metrics mode, problem 0's world",
+             ms_grad_mode_n1024=ms_tg1k,
+             bound_ms_grad_mode_n1024=bound_ms(N_TRAJ * traj_eval_flops(tt, wt0, True),
+                                               N_TRAJ * io_traj(1 + tt.nfD))[0],
+             rel_err=tcmp["traj_cost_grad"][0]),
+        dict(name="traj_solve", route="cuda",
+             source="curobo_tpu_torch/ops/csrc/traj_kernels.cu",
+             replaces="curobo_tpu/ops/pallas_traj.py:795",
+             launches=plan_launches["traj_solve"],
+             # largest |x_kernel - x_plain| (rad) over the strict comparisons
+             max_abs_err=max(c["max_abs_err_x"] for c in tcmp["traj_solve"]),
+             tolerance=f"strict cases: |dx| < {LOOP_X_TOL} rad on >= {LOOP_X_FRAC} of the "
+                       f"trajectories and median relative cost error < {LOOP_COST_MED}; "
+                       "trajopt budget: converged share within 0.02 of the plain version's",
+             trajopt_budget_agreement=full_traj,
+             ms=ms_ts, plain_ms=plain_ts, bound_ms=b_ts, bound_by=by_ts, library_ms=None,
+             shape=f"NP=4 trajectories, spline (5, 16, 32), D={D}, L-BFGS 56 x line search 5, "
+                   "problem 0's world"),
     ]
     emit(dict(kernels=kernels))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))

@@ -1,9 +1,11 @@
 """curobo_tpu_torch: the PyTorch/CUDA package beside `curobo_tpu`.
 
-Collision-free batched inverse kinematics on an NVIDIA GPU through the same
-entry points as the JAX package (`Kinematics.from_robot_yaml` ->
-`compile_scene` -> `IKSolver.solve_pose`), with the fused IK kernels written
-by hand in CUDA C++ (`ops/ik_kernels.py`, `ops/csrc/`). Entry points run on
+Collision-free batched inverse kinematics and motion generation on an NVIDIA
+GPU through the same entry points as the JAX package
+(`Kinematics.from_robot_yaml` -> `compile_scene` -> `IKSolver.solve_pose`, and
+`MotionPlanner.plan_pose`: IK -> trajectory optimization -> interpolation),
+with the fused IK and trajectory kernels written by hand in CUDA C++
+(`ops/ik_kernels.py`, `ops/traj_kernels.py`, `ops/csrc/`). Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``.
 """
 
@@ -41,6 +43,10 @@ from curobo_tpu_torch.geom.world import WorldData, compile_scene, empty_world
 
 # Solvers
 from curobo_tpu_torch.solver.ik import IKConfig, IKResult, IKSolver
+from curobo_tpu_torch.solver.trajopt import TrajOptConfig, TrajOptResult, TrajOptSolver
+from curobo_tpu_torch.motion.planner import MotionPlanConfig, MotionPlanner, MotionPlanResult
+from curobo_tpu_torch.motion.batch_planner import BatchMotionPlanner
+from curobo_tpu_torch.graph.prm import PRMConfig, PRMGraphPlanner
 
 # Collision convenience
 from curobo_tpu_torch.collision.robot_scene import RobotSceneCollision
@@ -52,7 +58,8 @@ from curobo_tpu_torch import runtime
 
 
 def content_path(*parts: str) -> str:
-    """Path into the bundled content package (robot configs)."""
+    """Path into the bundled content package (robot and task configs, the
+    motion-generation problem suite)."""
     return _os.path.join(_os.path.dirname(__file__), "content", *parts)
 
 

@@ -1,7 +1,8 @@
 """Robot-vs-scene collision convenience API.
 
 Counterpart of `curobo_tpu/collision/robot_scene.py`: joint-space distance
-queries and batched sample/validate. `AttachmentManager` waits.
+queries and batched sample/validate/validate_trajectory. `AttachmentManager`
+waits.
 """
 
 from __future__ import annotations
@@ -60,6 +61,18 @@ class RobotSceneCollision:
     def validate(self, world: world_mod.WorldData, q: torch.Tensor) -> torch.Tensor:
         """bool per config."""
         return self.query(world, q).valid
+
+    def validate_trajectory(
+        self, world: world_mod.WorldData, traj_q: torch.Tensor, substeps: int = 4
+    ) -> torch.Tensor:
+        """(..., H, D) -> (...,) bool: every step and `substeps` interpolated
+        configurations before it are valid."""
+        prev = torch.cat([traj_q[..., :1, :], traj_q[..., :-1, :]], dim=-2)
+        alphas = torch.linspace(1.0 / substeps, 1.0, substeps, dtype=traj_q.dtype,
+                                device=traj_q.device)[:, None, None]
+        interp = prev[..., None, :, :] * (1 - alphas) + traj_q[..., None, :, :] * alphas
+        ok = self.query(world, interp).valid  # (..., K, H)
+        return ok.all(dim=-1).all(dim=-1)
 
     def sample(
         self, world: world_mod.WorldData, n: int, max_attempts: int = 10

@@ -186,25 +186,16 @@ __device__ __noinline__ float ik_scene_msdf(const IKWorld& w, float x, float y, 
 }
 
 // ---------------------------------------------------------------------------
-// The IK objective of one configuration: FK, pose error, joint-limit and
-// null-space penalties, self-collision hinge, scene penalty; with IK_WANT_GRAD
-// its gradient by the hand-written reverse pass; with IK_METRICS the raw
-// quantities of the feasibility test. Scratch slots [0, 18 L + 6 S).
+// Pieces of one evaluation shared by the IK and the trajectory kernels. `SC` is
+// a scratch accessor with `float& at(int slot)` (IKScratch here, TrajScratch in
+// traj_kernels.cu); link frames sit at slots oR (9 L) and oP (3 L), the
+// reverse-pass force and torque accumulators at oF and oT (3 L each), sphere
+// centres at oC and their cotangents at oG (3 S each).
 // ---------------------------------------------------------------------------
-__device__ __noinline__ float ik_eval(const IKRobot& rb, const IKWorld& w, const IKScratch& sc,
-                                      const float* goal, const float* q, float* grad,
-                                      int flags, IKMetrics* met) {
-  const bool want_grad = (flags & IK_WANT_GRAD) != 0;
-  const bool pose_only = (flags & IK_POSE_ONLY) != 0;
-  const bool metrics = (flags & IK_METRICS) != 0;
-  const int L = rb.L, S = rb.S, D = rb.D;
-  const int oR = 0, oP = 9 * L, oF = 12 * L, oT = 15 * L, oC = 18 * L, oG = 18 * L + 3 * S;
-  const float pos_w = rb.cfg_f[0], rot_w = rb.cfg_f[1], bound_w = rb.cfg_f[2];
-  const float null_w = rb.cfg_f[3], sc_w = rb.cfg_f[4], sc_act = rb.cfg_f[5];
-  const float coll_w = rb.cfg_f[6], coll_act = rb.cfg_f[7];
-
-  // ---- forward kinematics ---------------------------------------------------
-  for (int i = 0; i < L; ++i) {
+template <class SC>
+__device__ __forceinline__ void ik_fk_forward(const IKRobot& rb, const SC& sc, const float* q,
+                                              int oR, int oP) {
+  for (int i = 0; i < rb.L; ++i) {
     const int kind = rb.link_i[3 * i], par = rb.link_i[3 * i + 1], dof = rb.link_i[3 * i + 2];
     const float* lf = rb.link_f + 17 * i;
     float Rl[9], pl[3];
@@ -245,14 +236,20 @@ __device__ __noinline__ float ik_eval(const IKRobot& rb, const IKWorld& w, const
       }
     }
   }
+}
 
-  // ---- pose error of the tool frame -------------------------------------------
-  const int ti = rb.tool;
-  float Rt[9], tp[3];
-  for (int a = 0; a < 9; ++a) Rt[a] = sc.at(oR + 9 * ti + a);
-  for (int a = 0; a < 3; ++a) tp[a] = sc.at(oP + 3 * ti + a);
-  float dx = goal[0] - tp[0], dy = goal[1] - tp[1], dz = goal[2] - tp[2];
-  float pe2 = dx * dx + dy * dy + dz * dz;
+// Position and rotation error of the tool frame (rotation Rt, origin tp)
+// against a goal (x, y, z, qw, qx, qy, qz); the rotation error is the rotation
+// vector of conj(goal) * tool, e = (rx, ry, rz) * scale.
+struct IKPoseErr {
+  float dx, dy, dz, pe2, rx, ry, rz, scale, re2;
+};
+
+__device__ __forceinline__ IKPoseErr ik_pose_error(const float* goal, const float* Rt,
+                                                   const float* tp) {
+  IKPoseErr e;
+  e.dx = goal[0] - tp[0]; e.dy = goal[1] - tp[1]; e.dz = goal[2] - tp[2];
+  e.pe2 = e.dx * e.dx + e.dy * e.dy + e.dz * e.dz;
 
   // rotation matrix -> unit quaternion (w >= 0), dominant component first
   float tq[4];
@@ -288,8 +285,108 @@ __device__ __noinline__ float ik_eval(const IKRobot& rb, const IKWorld& w, const
   bool small = s2 < 1e-12f;
   float s = sqrtf(small ? 1.0f : s2);
   float angle = 2.0f * atan2f(s, rw);
-  float scale = small ? 2.0f : angle / s;
-  float re2 = s2 * scale * scale;
+  e.scale = small ? 2.0f : angle / s;
+  e.rx = rx; e.ry = ry; e.rz = rz;
+  e.re2 = s2 * e.scale * e.scale;
+  return e;
+}
+
+// Cotangent of pos_w * pe2 + rot_w * re2 as a force on the tool origin and a
+// torque (about the world origin) on the tool link. Overwrites the tool's
+// accumulators, which the caller has zeroed.
+template <class SC>
+__device__ __forceinline__ void ik_tool_wrench(const SC& sc, int ti, int oF, int oT, float pos_w,
+                                               float rot_w, const IKPoseErr& e, const float* Rt,
+                                               const float* tp) {
+  // position term: force on the tool origin; rotation term: pure torque
+  float fx = -2.0f * pos_w * e.dx, fy = -2.0f * pos_w * e.dy, fz = -2.0f * pos_w * e.dz;
+  float ex = e.rx * e.scale, ey = e.ry * e.scale, ez = e.rz * e.scale;
+  float k = 2.0f * rot_w;
+  float tx = k * (Rt[0] * ex + Rt[1] * ey + Rt[2] * ez);
+  float ty = k * (Rt[3] * ex + Rt[4] * ey + Rt[5] * ez);
+  float tz = k * (Rt[6] * ex + Rt[7] * ey + Rt[8] * ez);
+  sc.at(oF + 3 * ti) = fx; sc.at(oF + 3 * ti + 1) = fy; sc.at(oF + 3 * ti + 2) = fz;
+  sc.at(oT + 3 * ti) = tx + tp[1] * fz - tp[2] * fy;
+  sc.at(oT + 3 * ti + 1) = ty + tp[2] * fx - tp[0] * fz;
+  sc.at(oT + 3 * ti + 2) = tz + tp[0] * fy - tp[1] * fx;
+}
+
+// Sphere-centre cotangents (slot oG) -> force and torque on their links.
+template <class SC>
+__device__ __forceinline__ void ik_sphere_wrench(const IKRobot& rb, const SC& sc, int oC, int oG,
+                                                 int oF, int oT) {
+  for (int si = 0; si < rb.S; ++si) {
+    const int li = rb.sph_link[si];
+    float fx = sc.at(oG + 3 * si), fy = sc.at(oG + 3 * si + 1), fz = sc.at(oG + 3 * si + 2);
+    if (fx == 0.0f && fy == 0.0f && fz == 0.0f) continue;
+    float cx = sc.at(oC + 3 * si), cy = sc.at(oC + 3 * si + 1), cz = sc.at(oC + 3 * si + 2);
+    sc.at(oF + 3 * li) += fx; sc.at(oF + 3 * li + 1) += fy; sc.at(oF + 3 * li + 2) += fz;
+    sc.at(oT + 3 * li) += cy * fz - cz * fy;
+    sc.at(oT + 3 * li + 1) += cz * fx - cx * fz;
+    sc.at(oT + 3 * li + 2) += cx * fy - cy * fx;
+  }
+}
+
+// Reverse sweep, leaves to root: the accumulated wrenches become d/dq, added
+// into grad (which holds the direct terms already).
+template <class SC>
+__device__ __forceinline__ void ik_fk_reverse(const IKRobot& rb, const SC& sc, float* grad, int oR,
+                                              int oP, int oF, int oT) {
+  for (int i = rb.L - 1; i >= 0; --i) {
+    const int kind = rb.link_i[3 * i], par = rb.link_i[3 * i + 1], dof = rb.link_i[3 * i + 2];
+    float F[3], T[3];
+    for (int a = 0; a < 3; ++a) { F[a] = sc.at(oF + 3 * i + a); T[a] = sc.at(oT + 3 * i + a); }
+    if (kind != 0) {
+      const float* lf = rb.link_f + 17 * i;
+      float aw[3];
+      for (int a = 0; a < 3; ++a)
+        aw[a] = sc.at(oR + 9 * i + 3 * a) * lf[14] + sc.at(oR + 9 * i + 3 * a + 1) * lf[15] +
+                sc.at(oR + 9 * i + 3 * a + 2) * lf[16];
+      float g;
+      if (kind == 1) {
+        float px = sc.at(oP + 3 * i), py = sc.at(oP + 3 * i + 1), pz = sc.at(oP + 3 * i + 2);
+        float qx = T[0] - (py * F[2] - pz * F[1]);
+        float qy = T[1] - (pz * F[0] - px * F[2]);
+        float qz = T[2] - (px * F[1] - py * F[0]);
+        g = aw[0] * qx + aw[1] * qy + aw[2] * qz;
+      } else {
+        g = aw[0] * F[0] + aw[1] * F[1] + aw[2] * F[2];
+      }
+      grad[dof] += lf[0] * g;
+    }
+    if (par >= 0)
+      for (int a = 0; a < 3; ++a) { sc.at(oF + 3 * par + a) += F[a]; sc.at(oT + 3 * par + a) += T[a]; }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The IK objective of one configuration: FK, pose error, joint-limit and
+// null-space penalties, self-collision hinge, scene penalty; with IK_WANT_GRAD
+// its gradient by the hand-written reverse pass; with IK_METRICS the raw
+// quantities of the feasibility test. Scratch slots [0, 18 L + 6 S).
+// ---------------------------------------------------------------------------
+__device__ __noinline__ float ik_eval(const IKRobot& rb, const IKWorld& w, const IKScratch& sc,
+                                      const float* goal, const float* q, float* grad,
+                                      int flags, IKMetrics* met) {
+  const bool want_grad = (flags & IK_WANT_GRAD) != 0;
+  const bool pose_only = (flags & IK_POSE_ONLY) != 0;
+  const bool metrics = (flags & IK_METRICS) != 0;
+  const int L = rb.L, S = rb.S, D = rb.D;
+  const int oR = 0, oP = 9 * L, oF = 12 * L, oT = 15 * L, oC = 18 * L, oG = 18 * L + 3 * S;
+  const float pos_w = rb.cfg_f[0], rot_w = rb.cfg_f[1], bound_w = rb.cfg_f[2];
+  const float null_w = rb.cfg_f[3], sc_w = rb.cfg_f[4], sc_act = rb.cfg_f[5];
+  const float coll_w = rb.cfg_f[6], coll_act = rb.cfg_f[7];
+
+  // ---- forward kinematics ---------------------------------------------------
+  ik_fk_forward(rb, sc, q, oR, oP);
+
+  // ---- pose error of the tool frame -------------------------------------------
+  const int ti = rb.tool;
+  float Rt[9], tp[3];
+  for (int a = 0; a < 9; ++a) Rt[a] = sc.at(oR + 9 * ti + a);
+  for (int a = 0; a < 3; ++a) tp[a] = sc.at(oP + 3 * ti + a);
+  const IKPoseErr pe = ik_pose_error(goal, Rt, tp);
+  const float pe2 = pe.pe2, re2 = pe.re2;
   float cost = pos_w * pe2 + rot_w * re2;
 
   // ---- joint limits + null space -------------------------------------------------
@@ -311,17 +408,7 @@ __device__ __noinline__ float ik_eval(const IKRobot& rb, const IKWorld& w, const
 
   if (want_grad) {
     for (int a = 0; a < 3 * L; ++a) { sc.at(oF + a) = 0.0f; sc.at(oT + a) = 0.0f; }
-    // position term: force on the tool origin; rotation term: pure torque
-    float fx = -2.0f * pos_w * dx, fy = -2.0f * pos_w * dy, fz = -2.0f * pos_w * dz;
-    float ex = rx * scale, ey = ry * scale, ez = rz * scale;
-    float k = 2.0f * rot_w;
-    float tx = k * (Rt[0] * ex + Rt[1] * ey + Rt[2] * ez);
-    float ty = k * (Rt[3] * ex + Rt[4] * ey + Rt[5] * ez);
-    float tz = k * (Rt[6] * ex + Rt[7] * ey + Rt[8] * ez);
-    sc.at(oF + 3 * ti) = fx; sc.at(oF + 3 * ti + 1) = fy; sc.at(oF + 3 * ti + 2) = fz;
-    sc.at(oT + 3 * ti) = tx + tp[1] * fz - tp[2] * fy;
-    sc.at(oT + 3 * ti + 1) = ty + tp[2] * fx - tp[0] * fz;
-    sc.at(oT + 3 * ti + 2) = tz + tp[0] * fy - tp[1] * fx;
+    ik_tool_wrench(sc, ti, oF, oT, pos_w, rot_w, pe, Rt, tp);
   }
 
   float self_viol = -1.0e6f, min_clear = 1.0e6f;
@@ -376,48 +463,11 @@ __device__ __noinline__ float ik_eval(const IKRobot& rb, const IKWorld& w, const
     }
     cost += coll_w * pen;
     // ---- sphere cotangents -> force and torque on their links ----------------------------
-    if (want_grad) {
-      for (int si = 0; si < S; ++si) {
-        const int li = rb.sph_link[si];
-        float fx = sc.at(oG + 3 * si), fy = sc.at(oG + 3 * si + 1), fz = sc.at(oG + 3 * si + 2);
-        if (fx == 0.0f && fy == 0.0f && fz == 0.0f) continue;
-        float cx = sc.at(oC + 3 * si), cy = sc.at(oC + 3 * si + 1), cz = sc.at(oC + 3 * si + 2);
-        sc.at(oF + 3 * li) += fx; sc.at(oF + 3 * li + 1) += fy; sc.at(oF + 3 * li + 2) += fz;
-        sc.at(oT + 3 * li) += cy * fz - cz * fy;
-        sc.at(oT + 3 * li + 1) += cz * fx - cx * fz;
-        sc.at(oT + 3 * li + 2) += cx * fy - cy * fx;
-      }
-    }
+    if (want_grad) ik_sphere_wrench(rb, sc, oC, oG, oF, oT);
   }
 
   // ---- reverse sweep, leaves to root ------------------------------------------------
-  if (want_grad) {
-    for (int i = L - 1; i >= 0; --i) {
-      const int kind = rb.link_i[3 * i], par = rb.link_i[3 * i + 1], dof = rb.link_i[3 * i + 2];
-      float F[3], T[3];
-      for (int a = 0; a < 3; ++a) { F[a] = sc.at(oF + 3 * i + a); T[a] = sc.at(oT + 3 * i + a); }
-      if (kind != 0) {
-        const float* lf = rb.link_f + 17 * i;
-        float aw[3];
-        for (int a = 0; a < 3; ++a)
-          aw[a] = sc.at(oR + 9 * i + 3 * a) * lf[14] + sc.at(oR + 9 * i + 3 * a + 1) * lf[15] +
-                  sc.at(oR + 9 * i + 3 * a + 2) * lf[16];
-        float g;
-        if (kind == 1) {
-          float px = sc.at(oP + 3 * i), py = sc.at(oP + 3 * i + 1), pz = sc.at(oP + 3 * i + 2);
-          float qx = T[0] - (py * F[2] - pz * F[1]);
-          float qy = T[1] - (pz * F[0] - px * F[2]);
-          float qz = T[2] - (px * F[1] - py * F[0]);
-          g = aw[0] * qx + aw[1] * qy + aw[2] * qz;
-        } else {
-          g = aw[0] * F[0] + aw[1] * F[1] + aw[2] * F[2];
-        }
-        grad[dof] += lf[0] * g;
-      }
-      if (par >= 0)
-        for (int a = 0; a < 3; ++a) { sc.at(oF + 3 * par + a) += F[a]; sc.at(oT + 3 * par + a) += T[a]; }
-    }
-  }
+  if (want_grad) ik_fk_reverse(rb, sc, grad, oR, oP, oF, oT);
 
   if (metrics) {
     met->pe2 = pe2; met->re2 = re2; met->self_viol = self_viol; met->min_clear = min_clear;
