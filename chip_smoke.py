@@ -8,20 +8,28 @@ Builds the CUDA kernels from the sources in this checkout and holds each
 kernel against its plain PyTorch version on the card at the shapes of its
 path: the IK kernels at 3200 Franka configurations (100 goals x 32 seeds), the
 trajectory kernels at 1024 Franka trajectories (spline 5, 16, 32) in the
-motion suite's worlds. Then it drives the two main paths through the public
-entry points and checks the results: collision-free IK
+motion suite's worlds and at 256 trajectories of a 64-step horizon (whose step
+state lives in global memory), and all four in a world of 4096 cuboid rows
+(whose rows live in global memory). Two launches of each solver kernel on the
+same inputs must give the same bits. Then it drives the two main paths through
+the public entry points and checks the results: collision-free IK
 (`Kinematics.from_robot_yaml` -> `compile_scene` -> `IKSolver.solve_pose`,
 phase `solve`) and motion generation (`MotionPlanner.plan_pose` over the 90
-problems of `content/problems/franka_motion.json`, phase `plan`). Every line of
-output is one JSON object, except the line with the card's name and power
-limit. Exits non-zero on the first failed phase, and when there is no CUDA
-device.
+problems of `content/problems/franka_motion.json`, phase `plan`), times the
+kernels at the paths' shapes, and traces two plans with `torch.profiler`
+(phase `profile`). The trace and the compiler's `-Xptxas -v` logs are written
+to `chiprun_out/`. Every line of output is one JSON object, except the line
+with the card's name and power limit. Exits non-zero on the first failed
+phase, and when there is no CUDA device.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -41,7 +49,7 @@ from curobo_tpu_torch.ops import ik_kernels as ikk
 from curobo_tpu_torch.ops import traj_kernels as tk
 from curobo_tpu_torch.opt.lbfgs import LBFGSConfig, LineSearchConfig
 from curobo_tpu_torch.opt.mppi import MPPIConfig, smooth_sample_transform
-from curobo_tpu_torch.transition.bspline import BSplineTransition
+from curobo_tpu_torch.transition.bspline import BSplineConfig, BSplineTransition
 
 DEV = torch.device("cuda", 0)
 N_GOALS, N_SEEDS = 100, 32
@@ -50,6 +58,19 @@ N_TRAJ = 1024  # trajectories of the trajectory-kernel comparisons
 # Published peaks of one H100 SXM: float32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67.0e12
 PEAK_BYTES = 3.35e12
+N_SM = 132
+
+IK_WARPS = 4  # configurations per block of the IK kernels (IK_WARPS, ops/csrc/ik_kernels.cu)
+# Cuboid rows of the large-world check: more than a block's shared memory
+# holds beside the tables, so the launches compact them into global memory.
+BIG_WORLD_CUBOIDS = 4096
+
+# Kernel times of the previous design (one thread per evaluation), quoted from
+# PERF.md (PR 2: NVIDIA H100 80GB HBM3, 700 W) and printed on a line of their
+# own, labelled as quoted; this run measures none of them.
+PR2_QUOTED_MS = dict(ik_solve_bench_n3200=9.368, ik_solve_default_n3200=110.209,
+                     ik_solve_default_n32=150.9, traj_solve_np4=246.19,
+                     traj_cost_grad_np1=0.876, ik_cost_grad_n3200=0.371)
 
 # Limits of the comparisons. Cost and gradient: sums over 694 pair terms and
 # 61 sphere terms run in another order in the kernel than in PyTorch, and the
@@ -193,6 +214,48 @@ def bound_ms(flops: float, nbytes: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def sm_floor_ms(flops: float, blocks: int) -> float:
+    """The float32 floor on the SMs a launch of `blocks` blocks can fill (one
+    block per SM at most): its operations over that share of the peak."""
+    return flops / (PEAK_F32_FLOPS * min(blocks, N_SM) / N_SM) * 1e3
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, stack and spills per function from `nvcc -Xptxas -v`. ptxas
+    compiles the functions a kernel calls once for each kernel's register cap,
+    so a called function is keyed "kernel:function"."""
+    out, entry, fn = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            fn = m.group(1) if m.group(1) == entry else f"{entry}:{m.group(1)}"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn is not None:
+            out.setdefault(fn, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                          spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_of(summary: dict, kernel: str) -> dict:
+    """One kernel's entry, the spill stores of everything it runs (its own
+    copies of the functions it calls included) and the most spill stores of
+    any function of its library."""
+    mine = {fn: v for fn, v in summary.items() if fn.split(":")[0].find(kernel) >= 0}
+    entry = next((v for fn, v in mine.items() if ":" not in fn), {})
+    return dict(entry, spill_stores_with_callees=sum(v.get("spill_stores", 0) for v in mine.values()),
+                library_max_spill_stores=max((v.get("spill_stores", 0) for v in summary.values()),
+                                             default=0))
+
+
 # ---------------------------------------------------------------------------
 # Comparisons
 # ---------------------------------------------------------------------------
@@ -247,6 +310,13 @@ def compare_solve(tab, world_tabs, goal7, x0, budget, label, seed=0, noise=None,
         max_abs_err_cost=float((ck - cp).abs().max()),
         max_abs_err_x=float(dx.max()), plain_ms=plain_s * 1e3,
     )
+    if not strict:
+        # the pose error of the converged configurations (the planner hands
+        # several of them on as trajectory ends): mean and 98th percentile, mm
+        for who, pe, re, fe in (("kernel", pek, rek, fek), ("plain", pep, rep, fep)):
+            e = pe[conv(pe, re, fe)].double() * 1e3
+            res[f"conv_pos_err_mm_mean_{who}"] = float(e.mean()) if e.numel() else -1.0
+            res[f"conv_pos_err_mm_p98_{who}"] = float(torch.quantile(e, 0.98)) if e.numel() else -1.0
     if strict:
         if not (res["cost_rel_median"] < LOOP_COST_MED and res["x_agree_frac"] >= LOOP_X_FRAC):
             fail(f"ik_solve[{label}] disagrees with its plain version: {res}")
@@ -481,6 +551,162 @@ def compare_traj_full(kin, suite, n_per=128):
     return res
 
 
+def traj_compare_long_horizon(kin, suite, n=256):
+    """Both trajectory kernels against their plain versions at a 64-step
+    horizon (spline 5, 16, 64, pin_goal): a trajectory's step state does not
+    fit in shared memory there, so the launch keeps it in global memory."""
+    problems = suite["problems"]
+    bs = BSplineConfig(degree=5, n_control=16, horizon=64)
+    tcfg = ct.TrajOptConfig()
+    tt = tk.build_traj_tables(kin.params, tcfg.rollout, bs, True, DEV)
+    shelf = next(p for p in problems if p["scenario"] == "shelf")
+    wt = ikk.pack_world_arrays(motion_world(shelf["world"], suite["cuboid_capacity"]))
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    inputs = traj_inputs(BSplineTransition(bs), problems, n, gen, True)
+    shallow = tk.TrajSolveBudget(mppi_iters=0, lbfgs_iters=3, history=4, n_linesearch=2)
+    lib = tk._lib()
+    rb, w, tc = ikk._c_robot(tt.ik), ikk._c_world(wt), tk._c_traj(tt)
+    global_words = lib.traj_solve_scratch_words(ctypes.addressof(rb), ctypes.addressof(w),
+                                                ctypes.addressof(tc), shallow.history, 1)
+    if global_words == 0:
+        fail("H=64: the step state was expected to leave shared memory")
+    cg = compare_traj_cost_grad(tt, wt, inputs, "H=64, shelf world, pin_goal=True")
+    sv, _ = compare_traj_solve(tt, wt, inputs, shallow, "H=64, lbfgs 3")
+    return dict(horizon=64, trajectories=n, global_step_words_per_trajectory=global_words,
+                traj_cost_grad=cg, traj_solve=sv)
+
+
+def big_world(wt, n_far=256, cap=BIG_WORLD_CUBOIDS):
+    """A world of `cap` cuboid rows: the enabled cuboids of `wt` at rows 8,
+    8 + stride, ... (stride a multiple of 16), `n_far` enabled boxes 3-5 m
+    away at rows 1, 17, 33, ..., every other row disabled."""
+    cub = wt[0]
+    en = cub[cub[:, 15] > 0.5]
+    big = torch.zeros((cap, 16), dtype=torch.float32, device=DEV)
+    big[:, [0, 4, 8]] = 1.0
+    far = torch.arange(n_far, device=DEV) * (cap // n_far) + 1
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    big[far, 9:12] = (3.0 + 2.0 * torch.rand((n_far, 3), generator=gen)).to(DEV)
+    big[far, 12:15] = 0.2
+    big[far, 15] = 1.0
+    stride = (cap // len(en)) // 16 * 16
+    big[torch.arange(len(en), device=DEV) * stride + 8] = en
+    return (big, *wt[1:])
+
+
+def compare_big_world(kin, suite, tab, goal7, q, n_ik=256, n_traj=8):
+    """The four kernels against their plain versions in a world of
+    BIG_WORLD_CUBOIDS cuboid rows (a shelf problem's obstacles among disabled
+    rows and distant boxes), which does not fit in a block's shared memory:
+    the launches compact its rows into global memory and read them there. The
+    trajectories at H = 32 (step state in shared memory) and H = 64 (step
+    state in global memory as well)."""
+    shelf = next(p for p in suite["problems"] if p["scenario"] == "shelf")
+    wt = big_world(ikk.pack_world_arrays(motion_world(shelf["world"], suite["cuboid_capacity"])))
+    shallow = ikk.IKSolveBudget(mppi_iters=0, lbfgs_iters=3, history=4, n_linesearch=2,
+                                warmup_iters=4, warmup_history=6)
+    ik_lib, traj_lib = ikk._lib(), tk._lib()
+    rb, w = ikk._c_robot(tab), ikk._c_world(wt)
+    if ik_lib.ik_cost_grad_scratch_words(ctypes.addressof(rb), ctypes.addressof(w)) == 0:
+        fail("big world: its rows were expected to leave shared memory (ik_cost_grad)")
+    out = dict(cuboid_rows=BIG_WORLD_CUBOIDS, enabled=int((wt[0][:, 15] > 0.5).sum()),
+               ik_cost_grad=compare_cost_grad(tab, wt, goal7[:n_ik], q[:n_ik], "big world"),
+               ik_solve=compare_solve(tab, wt, goal7[:n_ik], q[:n_ik], shallow,
+                                      "big world, shallow")[0])
+    tcfg = ct.TrajOptConfig()
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    traj_shallow = tk.TrajSolveBudget(mppi_iters=0, lbfgs_iters=3, history=4, n_linesearch=2)
+    for H in (32, 64):
+        bs = dataclasses.replace(tcfg.bspline, horizon=H)
+        tt = tk.build_traj_tables(kin.params, tcfg.rollout, bs, True, DEV)
+        tc = tk._c_traj(tt)
+        if traj_lib.traj_solve_scratch_words(ctypes.addressof(rb), ctypes.addressof(w),
+                                             ctypes.addressof(tc), traj_shallow.history, 1) == 0:
+            fail(f"big world, H={H}: its rows were expected to leave shared memory")
+        inputs = traj_inputs(BSplineTransition(bs), [shelf], n_traj, gen, True)
+        out[f"traj_cost_grad_h{H}"] = compare_traj_cost_grad(tt, wt, inputs, f"big world, H={H}")
+        out[f"traj_solve_h{H}"] = compare_traj_solve(tt, wt, inputs, traj_shallow,
+                                                     f"big world, H={H}, lbfgs 3")[0]
+    return out
+
+
+def determinism(tab, wt0, g32, s32, default_b, tt, wt_t, in4, traj_b):
+    """Two launches of each solver kernel on the same inputs give the same
+    bits (the planner's "same seed -> same plan" rests on it)."""
+    a = ikk.ik_solve(tab, wt0, g32, s32, default_b, 5, None)
+    b = ikk.ik_solve(tab, wt0, g32, s32, default_b, 5, None)
+    c = tk.traj_solve(tt, wt_t, *in4, traj_b)
+    d = tk.traj_solve(tt, wt_t, *in4, traj_b)
+    torch.cuda.synchronize()
+    res = dict(ik_solve_n32_bitwise_equal=all(torch.equal(x, y) for x, y in zip(a, b)),
+               traj_solve_np4_bitwise_equal=all(torch.equal(x, y) for x, y in zip(c, d)))
+    if not all(res.values()):
+        fail(f"two launches on the same inputs differ: {res}")
+    return res
+
+
+def profile_plans(planner, kin, suite, out_dir):
+    """`torch.profiler` over two first-attempt plans: the device's busy share
+    of each plan's host window, kernel time by name and the longest idle gaps
+    between device work."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cap = suite["cuboid_capacity"]
+    inputs = [problem_inputs(kin, p, cap) for p in suite["problems"][:2]]
+    attempts = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i, (world, goal, start) in enumerate(inputs):
+            with record_function(f"plan_{i}"):
+                res = planner.plan_pose(world, goal, start, seed=i)
+                res.trajectory.position.cpu()
+            attempts.append(planner.last_attempts)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "plan_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                 if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    wins = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                  and str(e.get("name", "")).startswith("plan_"))
+    out = dict(phase="profile", plans=len(inputs), attempts=attempts, trace=path,
+               device_events=len(dev))
+    if not dev or len(wins) != len(inputs):
+        # no device time in the trace: the CUDA-event count of the plan phase
+        # (kernel_ms_per_first_attempt against the median plan) stands instead
+        out["note"] = "the profiler recorded no device time; see the plan phase's CUDA-event count"
+        return out
+    window = busy = 0.0
+    gaps, by_name = [], {}
+    for t0, t1 in wins:
+        window += t1 - t0
+        prev_end, prev_name = t0, "start of plan"
+        for a, b, name in dev:
+            if b <= t0 or a >= t1:
+                continue
+            a, b = max(a, t0), min(b, t1)
+            short = name.split("(")[0][:60]
+            by_name[short] = by_name.get(short, 0.0) + (b - a)
+            if a > prev_end:
+                gaps.append((a - prev_end, prev_name, short))
+            if b > prev_end:
+                busy += b - max(a, prev_end)
+                prev_end, prev_name = b, short
+        if t1 > prev_end:
+            gaps.append((t1 - prev_end, prev_name, "end of plan"))
+    gaps.sort(reverse=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out.update(window_ms=window / 1e3, device_busy_ms=busy / 1e3, busy_share=busy / window,
+               idle_share=1.0 - busy / window,
+               kernel_ms_by_name={k: v / 1e3 for k, v in top},
+               longest_idle_gaps=[dict(ms=g / 1e3, after=a, before=b) for g, a, b in gaps[:8]],
+               idle_gaps_over_50us=sum(1 for g, _, _ in gaps if g > 50.0),
+               idle_ms_in_gaps_over_50us=sum(g for g, _, _ in gaps if g > 50.0) / 1e3)
+    return out
+
+
 def traj_eval_flops(tt: tk.TrajTables, world_tabs, grad: bool) -> float:
     """Float operations of one trajectory evaluation: per step FK, the
     self-collision pairs and the swept scene term (live spheres x K samples x
@@ -613,6 +839,10 @@ def plan_phase(kin, suite, t_start, deadline_s=780.0):
         retry_rate=float(np.mean([r["attempts"] > 1 for r in rows])),
         position_error_mm_mean=mean_of("position_error") * 1e3,
         position_error_mm_p98=p98_of("position_error") * 1e3,
+        position_error_mm_largest=[dict(problem=i, mm=r["position_error"] * 1e3)
+                                   for i, r in sorted(enumerate(rows), key=lambda ir:
+                                                      -ir[1]["position_error"])[:5]
+                                   if r["success"]],
         motion_time_mean_s=mean_of("motion_time"), motion_time_p98_s=p98_of("motion_time"),
         path_length_mean=mean_of("path_length"), max_jerk_mean=mean_of("max_jerk"),
         max_jerk_p98=p98_of("max_jerk"),
@@ -643,10 +873,19 @@ def main():
 
     # ---- build ------------------------------------------------------------
     secs = kbuild.build_all()
-    ptxas = [l.strip() for n in secs for l in kbuild.build_log(n).splitlines()
-             if "registers" in l or "spill" in l or "Compiling entry" in l or "warning" in l.lower()]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    for n in secs:
+        with open(os.path.join(out_dir, f"build_{n}.log"), "w") as fh:
+            fh.write(kbuild.build_log(n))
+    ptx = {n: ptxas_summary(kbuild.build_log(n)) for n in secs}
+    warnings = [l.strip() for n in secs for l in kbuild.build_log(n).splitlines() if "warning" in l.lower()]
     emit(dict(phase="build", seconds=secs, libraries=[kbuild.library_path(n) for n in secs],
-              ptxas=ptxas[:80]))
+              warnings=warnings[:20], ptxas_summary=ptx, logs=out_dir))
+    for lib, kernel in (("ik_kernels", "ik_solve_kernel"), ("traj_kernels", "traj_solve_kernel")):
+        spills = ptxas_of(ptx[lib], kernel)["spill_stores_with_callees"]
+        if spills:
+            fail(f"{kernel} spills {spills} bytes (-Xptxas -v, {lib})")
 
     # ---- set-up -------------------------------------------------------------
     kin = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"))
@@ -712,6 +951,8 @@ def main():
     emit(cmp)
     suite = motion_suite()
     tcmp = traj_compare(kin, suite)
+    tcmp["long_horizon"] = traj_compare_long_horizon(kin, suite)
+    tcmp["big_world"] = compare_big_world(kin, suite, tab, goal7, q_rand)
     emit(dict(phase="compare_traj", limits=dict(
         rel_median=COST_MED, rel_p99=COST_P99, feasible_agree_frac=0.99,
         loop_cost_rel_median=LOOP_COST_MED, loop_x_agree_frac=LOOP_X_FRAC,
@@ -760,7 +1001,9 @@ def main():
     g4 = torch.Generator(device="cpu").manual_seed(4)
     in4 = traj_inputs(tr, [p0], 4, g4, True, start_noise=0.0, end_noise=0.01, knot_noise=0.0)
     in1 = tuple(t[:1] for t in in4)
+    in8 = traj_inputs(tr, [p0], 8, g4, True, start_noise=0.0, end_noise=0.01, knot_noise=0.01)
     ms_ts = time_ms(lambda: tk.traj_solve(tt, wt0, *in4, traj_b), reps=5)
+    ms_ts8 = time_ms(lambda: tk.traj_solve(tt, wt0, *in8, traj_b), reps=5)
     plain_ts = time_ms(lambda: tk.traj_solve_plain(tt, wt0, *in4, traj_b), reps=1, warm=0)
     ms_tm = time_ms(lambda: tk.traj_cost_grad(tt, wt0, *in1, "metrics"), reps=20, warm=2)
     plain_tm = time_ms(lambda: tk.traj_cost_grad_plain(tt, wt0, *in1, "metrics"), reps=5)
@@ -770,6 +1013,8 @@ def main():
     g32 = in4[0][:1].expand(N_SEEDS, 7).contiguous()
     s32 = solver.generate_seeds(1, in4[2][:1]).reshape(N_SEEDS, D).contiguous()
     ms_ik32 = time_ms(lambda: ikk.ik_solve(tab, wt0, g32, s32, default_b, 0, None), reps=5)
+    emit(dict(phase="determinism", **determinism(tab, wt0, g32, s32, default_b, tt, wt0, in4,
+                                                  traj_b)))
 
     # ---- main path, twice: bench budget and the default IKConfig ----------------------
     ikk.ik_solve.launches = 0
@@ -830,7 +1075,7 @@ def main():
         fail(f"main path did not go through the kernels: {launches}")
 
     # ---- main path of motion generation: MotionPlanner.plan_pose over the suite ------
-    plan, plan_launches, _ = plan_phase(kin, suite, t_start)
+    plan, plan_launches, planner = plan_phase(kin, suite, t_start)
     # kernel time of a first attempt (one ik_solve, two traj_solve, one check)
     # against the plan's wall time: the rest is host work and launch gaps
     kernel_ms = ms_ik32 + 2 * ms_ts + ms_tm
@@ -840,6 +1085,7 @@ def main():
     for k in ("ik_solve", "traj_solve", "traj_cost_grad"):
         if plan_launches[k] < 1:
             fail(f"plan phase did not launch {k}: {plan_launches}")
+    emit(profile_plans(planner, kin, suite, out_dir))
 
     # ---- the kernels line ------------------------------------------------------------
     io_cg = N * (7 + D) * 4 + N * (1 + D) * 4
@@ -851,6 +1097,10 @@ def main():
     io_traj = lambda n_out: (7 + tt.nfD + 2 * D + 1 + n_out) * 4
     b_tm, by_tm = bound_ms(traj_eval_flops(tt, wt0, False), io_traj(5))
     b_ts, by_ts = bound_ms(4 * traj_solve_flops(tt, wt0, traj_b), 4 * io_traj(5 + tt.nfD))
+    f32 = 32 * solve_flops(tab, wt0, default_b)
+    b_ik32 = bound_ms(f32, 32 * ((7 + D) + (D + 4)) * 4)[0]
+    blocks = lambda n: -(-n // IK_WARPS)
+    lh = tcmp["long_horizon"]
     kernels = [
         dict(name="ik_cost_grad", route="cuda",
              source="curobo_tpu_torch/ops/csrc/ik_kernels.cu",
@@ -861,7 +1111,9 @@ def main():
                        f"99th percentile < {COST_P99}",
              ms=ms_cg, plain_ms=plain_cg, bound_ms=b_cg, bound_by=by_cg, library_ms=None,
              shape=f"N={N} D={D} franka table", rel_err=cg[0],
-             also_replaces=["curobo_tpu/ops/pallas_ik.py:865"]),
+             also_replaces=["curobo_tpu/ops/pallas_ik.py:865"],
+             sm_floor_ms=sm_floor_ms(N * eval_flops(tab, wt, True, False), blocks(N)),
+             ptxas=ptxas_of(ptx["ik_kernels"], "ik_cost_grad_kernel")),
         dict(name="ik_solve", route="cuda",
              source="curobo_tpu_torch/ops/csrc/ik_kernels.cu",
              replaces="curobo_tpu/ops/pallas_ik.py:1279",
@@ -882,12 +1134,17 @@ def main():
              also_replaces=["curobo_tpu/ops/pallas_ik.py:1144",
                             "curobo_tpu/ops/pallas_ik.py:1191"],
              launches_plan_phase=plan_launches["ik_solve"],
-             ms_plan_shape=ms_ik32, plan_shape="N=32 (1 goal x 32 seeds), default budget"),
+             ms_plan_shape=ms_ik32, plan_shape="N=32 (1 goal x 32 seeds), default budget",
+             redesigned="PR 3",
+             sm_floor_ms=sm_floor_ms(N * solve_flops(tab, wt, bench_b), blocks(N)),
+             sm_floor_ms_default_budget=sm_floor_ms(N * solve_flops(tab, wt, default_b), blocks(N)),
+             bound_ms_plan_shape=b_ik32, sm_floor_ms_plan_shape=sm_floor_ms(f32, blocks(32)),
+             ptxas=ptxas_of(ptx["ik_kernels"], "ik_solve_kernel")),
         dict(name="traj_cost_grad", route="cuda",
              source="curobo_tpu_torch/ops/csrc/traj_kernels.cu",
              replaces="curobo_tpu/ops/pallas_traj.py:625",
              launches=plan_launches["traj_cost_grad"],
-             max_abs_err=max(c["max_abs_err"] for c in tcmp["traj_cost_grad"]),
+             max_abs_err=max(c["max_abs_err"] for c in tcmp["traj_cost_grad"] + [lh["traj_cost_grad"]]),
              tolerance=f"relative error of cost, gradient, pose errors and retimed dt: median < "
                        f"{COST_MED}, 99th percentile < {COST_P99}; feasibility equal on >= 0.99",
              ms=ms_tm, plain_ms=plain_tm, bound_ms=b_tm, bound_by=by_tm, library_ms=None,
@@ -895,21 +1152,33 @@ def main():
              ms_grad_mode_n1024=ms_tg1k,
              bound_ms_grad_mode_n1024=bound_ms(N_TRAJ * traj_eval_flops(tt, wt0, True),
                                                N_TRAJ * io_traj(1 + tt.nfD))[0],
-             rel_err=tcmp["traj_cost_grad"][0]),
+             rel_err=tcmp["traj_cost_grad"][0], long_horizon_rel_err=lh["traj_cost_grad"],
+             sm_floor_ms=sm_floor_ms(traj_eval_flops(tt, wt0, False), 1),
+             ptxas=ptxas_of(ptx["traj_kernels"], "traj_cost_grad_kernel")),
         dict(name="traj_solve", route="cuda",
              source="curobo_tpu_torch/ops/csrc/traj_kernels.cu",
              replaces="curobo_tpu/ops/pallas_traj.py:795",
              launches=plan_launches["traj_solve"],
              # largest |x_kernel - x_plain| (rad) over the strict comparisons
-             max_abs_err=max(c["max_abs_err_x"] for c in tcmp["traj_solve"]),
+             max_abs_err=max(c["max_abs_err_x"] for c in tcmp["traj_solve"] + [lh["traj_solve"]]),
              tolerance=f"strict cases: |dx| < {LOOP_X_TOL} rad on >= {LOOP_X_FRAC} of the "
                        f"trajectories and median relative cost error < {LOOP_COST_MED}; "
                        "trajopt budget: converged share within 0.02 of the plain version's",
              trajopt_budget_agreement=full_traj,
              ms=ms_ts, plain_ms=plain_ts, bound_ms=b_ts, bound_by=by_ts, library_ms=None,
              shape=f"NP=4 trajectories, spline (5, 16, 32), D={D}, L-BFGS 56 x line search 5, "
-                   "problem 0's world"),
+                   "problem 0's world",
+             redesigned="PR 3",
+             sm_floor_ms=sm_floor_ms(4 * traj_solve_flops(tt, wt0, traj_b), 4),
+             ms_np8=ms_ts8,
+             bound_ms_np8=bound_ms(8 * traj_solve_flops(tt, wt0, traj_b), 8 * io_traj(5 + tt.nfD))[0],
+             sm_floor_ms_np8=sm_floor_ms(8 * traj_solve_flops(tt, wt0, traj_b), 8),
+             long_horizon_agreement=lh["traj_solve"],
+             ptxas=ptxas_of(ptx["traj_kernels"], "traj_solve_kernel")),
     ]
+    emit(dict(quoted_not_measured="kernel ms of the one-thread-per-evaluation design, "
+                                  "PERF.md, PR 2 (NVIDIA H100 80GB HBM3, 700 W)",
+              pr2_ms=PR2_QUOTED_MS))
     emit(dict(kernels=kernels))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     print(gpu, flush=True)

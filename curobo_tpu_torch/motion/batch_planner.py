@@ -63,16 +63,18 @@ class BatchMotionPlanner:
             }))
         if len(chunks) == 1:
             return chunks[0]
+        # interpolated horizons may differ between chunks: every JointState
+        # field is padded to the longest interpolated trajectory, holding its
+        # last state (the reference pads `solver_trajectory` to that horizon too)
+        H = max(c.trajectory.position.shape[1] for c in chunks)
+
+        def pad(a):
+            return torch.cat([a, a[:, -1:].expand((a.shape[0], H - a.shape[1]) + tuple(a.shape[2:]))], dim=1)
 
         def cat(field):
             vals = [getattr(c, field) for c in chunks]
             if isinstance(vals[0], JointState):
-                # horizons may differ between chunks (an interpolation horizon
-                # from the motion time): hold each field's last state
-                H = max(v.position.shape[1] for v in vals)
-                vals = [v._map(lambda a: torch.cat(
-                    [a, a[:, -1:].expand((a.shape[0], H - a.shape[1]) + tuple(a.shape[2:]))], dim=1))
-                    for v in vals]
+                vals = [v if v.position.shape[1] == H else v._map(pad) for v in vals]
                 return JointState(
                     **{
                         f: (None if getattr(vals[0], f) is None

@@ -1,24 +1,50 @@
-// Device functions shared by the two IK kernels (ik_cost_grad, ik_solve).
+// Device functions shared by the IK kernels (ik_cost_grad, ik_solve) and the
+// trajectory kernels (traj_cost_grad, traj_solve).
 //
 // Replaces the body of the Pallas IK kernels, `PallasIKCost._cost_fns` and the
 // in-kernel optimizer loops `_lbfgs_loop` / `_mppi_loop`
-// (curobo_tpu/ops/pallas_ik.py). One thread owns one configuration. Robot and
-// world are runtime tables in global memory (every thread of a warp reads the
-// same address, so the loads are broadcasts served by L1); per-thread state
-// (link frames, sphere centres, reverse-pass accumulators, L-BFGS history)
-// lives in a scratch buffer allocated by the caller and laid out
-// [block][slot][lane], so that a warp's accesses to one slot are contiguous.
+// (curobo_tpu/ops/pallas_ik.py), and the per-step body of `_lane_eval`
+// (curobo_tpu/ops/pallas_traj.py).
+//
+// One warp runs one evaluation (one IK configuration, one trajectory step).
+// Its state lives in shared memory, `st` below: link frames, sphere centres,
+// sphere cotangents and per-link force and torque accumulators (about 2.6 KB
+// for the Franka). The robot and world tables are copied into shared memory
+// once per block (`ik_load_tables`); the world rows are compacted to the
+// enabled ones in table order as they are copied, which keeps the scene
+// query's "first strict minimum in table order" and stops disabled rows from
+// costing a branch per sample. A world too large to fit beside the rest (some
+// thousands of cuboids) is compacted the same way once per launch into global
+// memory instead, and read there (ik_world_fits). The work of an evaluation
+// is split over the 32 lanes:
+//   - FK forward: a serial sweep over the links, lanes 0..11 computing one
+//     entry each of the link's rotation and origin;
+//   - sphere centres, the self-collision pairs and the scene samples: lane l
+//     owns spheres l, l + 32, ...; a sphere's live pairs come from a host-built
+//     list of both directions (cost counted at the lower-index end), and its K
+//     sweep samples stay on its lane, so that its cotangent is summed in one
+//     place;
+//   - sphere -> link wrenches: lane l owns links l, l + 32, ..., walking the
+//     link's sphere list;
+//   - FK reverse: a serial sweep over the links on lane 0;
+//   - cost and metric sums: warp shuffles in a fixed order.
+// Every sum runs in a fixed order and there are no atomics, so a launch gives
+// the same bits every time (the planner's "same seed -> same plan").
 //
 // The FK reverse pass is written by hand: cotangents on sphere centres and on
 // the tool pose become a force and a torque (about the world origin) on their
 // link, one sweep from the leaves to the root adds them into the parents, and
 // d/dq of a revolute joint is mult * axis_world . (torque about the joint
 // origin), of a prismatic joint mult * axis_world . force.
+//
+// Arithmetic is fp32 with IEEE division and sqrt; there are no matrix
+// products big enough for tensor cores, and TF32 is not used anywhere.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define IK_MAXD 16  // most degrees of freedom one thread keeps in registers
+#define IK_MAXD 16         // most degrees of freedom (lane d owns dof d)
+#define IK_FULL 0xffffffffu
 
 // ---- tables (mirrored by ctypes structures in ops/ik_kernels.py) ----------
 struct IKRobot {
@@ -26,11 +52,14 @@ struct IKRobot {
   const float* link_f;  // (L, 17) mult, off, R[9] row-major, p[3], axis[3]
   const float* sph_f;   // (S, 4)  centre in link frame, radius (< 0 = disabled)
   const int* sph_link;  // (S,)
-  const int* pair_i;    // (P, 2)  live self-collision pairs
-  const float* pair_m;  // (P,)    margin
+  const int* pair_off;  // (S + 1,) sphere s's live pairs are entries [off[s], off[s+1])
+  const int* pair_j;    // (2 P,)  the partner sphere of each entry, in pair order
+  const float* pair_m;  // (2 P,)  its margin
+  const int* lsph_off;  // (L + 1,) link l's live spheres are entries [off[l], off[l+1])
+  const int* lsph;      // (n_lsph,) sphere indices, ascending within a link
   const float* dof_f;   // (D, 6)  lim_lo, lim_hi, clip_lo, clip_hi, retract, null_w
   const float* cfg_f;   // (8,)    pos_w, rot_w, bound_w, null_space_w, sc_w, sc_act, coll_w, coll_act
-  int L, S, P, D, tool;
+  int L, S, P, D, n_lsph, tool;
 };
 
 struct IKWorld {
@@ -56,186 +85,394 @@ struct IKMetrics {
   float pe2, re2, self_viol, min_clear;
 };
 
-#define IK_BLOCK 32  // threads per block: one warp
-
-// Per-thread scratch. A block's slots are contiguous, [block][slot][lane], so
-// that a warp's access to one slot is one 128-byte line and a block's working
-// set is one dense range of the address space (measured on an H100: about 10 %
-// faster than interleaving all threads of the grid per slot, where slots lie
-// 100 lines apart). `base` points at this thread's lane of its block's slot 0.
-struct IKScratch {
-  float* base;
-  int n;  // configuration index
-  __device__ __forceinline__ float& at(int slot) const { return base[slot * IK_BLOCK]; }
-};
-
-__device__ __forceinline__ IKScratch ik_scratch(float* scratch, int slots, int n) {
-  return IKScratch{scratch + ((size_t)blockIdx.x * slots) * IK_BLOCK + threadIdx.x, n};
-}
-
 #define IK_WANT_GRAD 1
 #define IK_POSE_ONLY 2
 #define IK_METRICS 4
 
-__host__ __device__ inline int ik_eval_slots(int L, int S) { return 18 * L + 6 * S; }
-__host__ __device__ inline int ik_hist_slots(int H, int D) { return 2 * H * D + 3 * H; }
+// ---- shared-memory layouts, in 4-byte words ---------------------------------
+// Robot tables, then the world rows (the enabled ones, at most all).
+__host__ __device__ inline int ik_robot_words(const IKRobot& r) {
+  return 3 * r.L + 17 * r.L + 4 * r.S + r.S + (r.S + 1) + 4 * r.P + (r.L + 1) + r.n_lsph +
+         6 * r.D + 8;
+}
+__host__ __device__ inline int ik_world_words(const IKWorld& w) {
+  return 16 * w.Kc + 5 * w.Ks + 8 * w.Kp + 15 * w.Ky;
+}
+
+// State of one evaluation: link frames R (9 L) and origins P (3 L), force F and
+// torque T accumulators (3 L each), sphere centres C and cotangents G (3 S
+// each), the configuration q and its gradient (IK_MAXD each).
+struct IKLayout {
+  int oR, oP, oF, oT, oC, oG, oQ, oGQ, words;
+};
+
+__host__ __device__ inline IKLayout ik_layout(int L, int S) {
+  IKLayout o;
+  o.oR = 0; o.oP = 9 * L; o.oF = 12 * L; o.oT = 15 * L; o.oC = 18 * L; o.oG = 18 * L + 3 * S;
+  o.oQ = 18 * L + 6 * S; o.oGQ = o.oQ + IK_MAXD; o.words = o.oGQ + IK_MAXD;
+  return o;
+}
 
 // sign with sign(0) = 0 (copysignf would give +-1 at 0)
 __device__ __forceinline__ float ik_sign(float v) {
   return (v > 0.0f) ? 1.0f : ((v < 0.0f) ? -1.0f : 0.0f);
 }
 
+__device__ __forceinline__ int ik_lane() { return threadIdx.x & 31; }
+
+// Warp reductions: every lane returns the same value, combined in the same
+// order on every call.
+__device__ __forceinline__ float ik_warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(IK_FULL, v, o);
+  return v;
+}
+__device__ __forceinline__ float ik_warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(IK_FULL, v, o));
+  return v;
+}
+__device__ __forceinline__ float ik_warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(IK_FULL, v, o));
+  return v;
+}
+
 // ---------------------------------------------------------------------------
-// Min signed distance of one point over the four obstacle tables, first strict
-// minimum in table order (cuboid, sphere, capsule, cylinder); disabled rows
-// count as 1e6. With want_grad the analytic gradient of the argmin obstacle.
+// Tables into shared memory, once per block
 // ---------------------------------------------------------------------------
-__device__ __noinline__ float ik_scene_msdf(const IKWorld& w, float x, float y, float z,
-                                            bool want_grad, float* g) {
-  const float big = 1.0e6f;
-  float md = big;
-  g[0] = g[1] = g[2] = 0.0f;
-  for (int k = 0; k < w.Kc; ++k) {
-    const float* r = w.cub + 16 * k;
-    if (!(r[15] > 0.5f)) continue;
-    float ux = x - r[9], uy = y - r[10], uz = z - r[11];
-    float lx = r[0] * ux + r[3] * uy + r[6] * uz;
-    float ly = r[1] * ux + r[4] * uy + r[7] * uz;
-    float lz = r[2] * ux + r[5] * uy + r[8] * uz;
-    float qx = fabsf(lx) - r[12], qy = fabsf(ly) - r[13], qz = fabsf(lz) - r[14];
-    float mqx = fmaxf(qx, 0.0f), mqy = fmaxf(qy, 0.0f), mqz = fmaxf(qz, 0.0f);
-    float o = sqrtf(mqx * mqx + mqy * mqy + mqz * mqz + 1e-12f);
-    float inside_max = fmaxf(qx, fmaxf(qy, qz));
-    float d = o + fminf(inside_max, 0.0f);
-    if (d < md) {
-      md = d;
-      if (want_grad) {
-        float sx = ik_sign(lx), sy = ik_sign(ly), sz = ik_sign(lz);
-        float glx, gly, glz;
-        if (inside_max > 0.0f) {
-          glx = sx * mqx / o; gly = sy * mqy / o; glz = sz * mqz / o;
-        } else {
-          bool ax = (qx >= qy) && (qx >= qz);
-          bool ay = (!ax) && (qy >= qz);
-          bool az = !(ax || ay);
-          glx = ax ? sx : 0.0f; gly = ay ? sy : 0.0f; glz = az ? sz : 0.0f;
-        }
-        g[0] = r[0] * glx + r[1] * gly + r[2] * glz;
-        g[1] = r[3] * glx + r[4] * gly + r[5] * glz;
-        g[2] = r[6] * glx + r[7] * gly + r[8] * glz;
-      }
+__device__ __forceinline__ const void* ik_copy_words(float*& p, const void* src, int n) {
+  const unsigned* s = (const unsigned*)src;
+  unsigned* d = (unsigned*)p;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) d[i] = s[i];
+  p += n;
+  return d;
+}
+
+// The enabled rows of a (K, width) table (flag in the last column), in table
+// order, to dst; run by the 32 lanes of one warp, a ballot per 32 rows.
+__device__ __forceinline__ int ik_compact_rows(float* dst, const float* src, int K, int width) {
+  const int lane = ik_lane();
+  int base = 0;
+  for (int r0 = 0; r0 < K; r0 += 32) {
+    const int r = r0 + lane;
+    const bool en = r < K && src[(size_t)r * width + width - 1] > 0.5f;
+    const unsigned mask = __ballot_sync(IK_FULL, en);
+    if (en) {
+      const int pos = base + __popc(mask & ((1u << lane) - 1u));
+      for (int e = 0; e < width; ++e) dst[pos * width + e] = src[(size_t)r * width + e];
     }
+    base += __popc(mask);
+  }
+  return base;
+}
+
+// Copies the robot tables and the enabled world rows into shared memory at
+// `smem` and returns the first word after them. `rb` and `w` are the block's
+// descriptors of the copies, themselves in (static) shared memory, so that
+// their pointers are read where they are used instead of holding some 40
+// registers for the whole kernel. A world too large for shared memory comes
+// already compacted in global memory, `wglob` (ik_compact_world_kernel): its
+// rows are then read there and not copied. Every thread of the block must call
+// it (it ends with a barrier).
+__device__ float* ik_load_tables(const IKRobot& g, const IKWorld& gw, const float* wglob,
+                                 float* smem, IKRobot& rb, IKWorld& w) {
+  float* p = smem;
+  const int* link_i = (const int*)ik_copy_words(p, g.link_i, 3 * g.L);
+  const float* link_f = (const float*)ik_copy_words(p, g.link_f, 17 * g.L);
+  const float* sph_f = (const float*)ik_copy_words(p, g.sph_f, 4 * g.S);
+  const int* sph_link = (const int*)ik_copy_words(p, g.sph_link, g.S);
+  const int* pair_off = (const int*)ik_copy_words(p, g.pair_off, g.S + 1);
+  const int* pair_j = (const int*)ik_copy_words(p, g.pair_j, 2 * g.P);
+  const float* pair_m = (const float*)ik_copy_words(p, g.pair_m, 2 * g.P);
+  const int* lsph_off = (const int*)ik_copy_words(p, g.lsph_off, g.L + 1);
+  const int* lsph = (const int*)ik_copy_words(p, g.lsph, g.n_lsph);
+  const float* dof_f = (const float*)ik_copy_words(p, g.dof_f, 6 * g.D);
+  const float* cfg_f = (const float*)ik_copy_words(p, g.cfg_f, 8);
+  // the four tables at the offsets of their capacities
+  const int oS = 16 * gw.Kc, oP = oS + 5 * gw.Ks, oY = oP + 8 * gw.Kp;
+  const float* cub = wglob != nullptr ? wglob + 4 : p;
+  const float* sph = cub + oS;
+  const float* cap = cub + oP;
+  const float* cyl = cub + oY;
+  if (threadIdx.x < 32) {
+    int kc, ks, kp, ky;
+    if (wglob != nullptr) {
+      const int* n = (const int*)wglob;
+      kc = n[0]; ks = n[1]; kp = n[2]; ky = n[3];
+    } else {
+      kc = ik_compact_rows(p, gw.cub, gw.Kc, 16);
+      ks = ik_compact_rows(p + oS, gw.sph, gw.Ks, 5);
+      kp = ik_compact_rows(p + oP, gw.cap, gw.Kp, 8);
+      ky = ik_compact_rows(p + oY, gw.cyl, gw.Ky, 15);
+    }
+    if (threadIdx.x == 0) {
+      rb = g;
+      rb.link_i = link_i; rb.link_f = link_f; rb.sph_f = sph_f; rb.sph_link = sph_link;
+      rb.pair_off = pair_off; rb.pair_j = pair_j; rb.pair_m = pair_m;
+      rb.lsph_off = lsph_off; rb.lsph = lsph; rb.dof_f = dof_f; rb.cfg_f = cfg_f;
+      w.cub = cub; w.sph = sph; w.cap = cap; w.cyl = cyl;
+      w.Kc = kc; w.Ks = ks; w.Kp = kp; w.Ky = ky;
+    }
+  }
+  __syncthreads();
+  return wglob != nullptr ? p : p + ik_world_words(gw);
+}
+
+// The enabled world rows compacted in table order into `dst` in global memory:
+// the four counts, then the four tables at the offsets of their capacities.
+// Launched with one warp before a kernel whose world does not fit in shared
+// memory (ik_world_fits), which then reads the rows there.
+__global__ void ik_compact_world_kernel(IKWorld gw, float* dst) {
+  const int oS = 16 * gw.Kc, oP = oS + 5 * gw.Ks, oY = oP + 8 * gw.Kp;
+  float* rows = dst + 4;
+  const int kc = ik_compact_rows(rows, gw.cub, gw.Kc, 16);
+  const int ks = ik_compact_rows(rows + oS, gw.sph, gw.Ks, 5);
+  const int kp = ik_compact_rows(rows + oP, gw.cap, gw.Kp, 8);
+  const int ky = ik_compact_rows(rows + oY, gw.cyl, gw.Ky, 15);
+  if (threadIdx.x == 0) {
+    int* n = (int*)dst;
+    n[0] = kc; n[1] = ks; n[2] = kp; n[3] = ky;
+  }
+}
+
+// ---- launch-side helpers ----------------------------------------------------
+// Shared memory a block may have on this device, in 4-byte words.
+static inline size_t ik_smem_limit_words() {
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (size_t)v / sizeof(float);
+}
+
+// Whether the world rows fit in a block's shared memory next to the robot
+// tables and `other` words of the block's own state. When they do not, the
+// launch compacts them into a global buffer of ik_world_global_words words
+// (ik_stage_world) and the kernels read them there; nothing else changes.
+static inline bool ik_world_fits(const IKRobot& r, const IKWorld& w, size_t other) {
+  return (size_t)ik_robot_words(r) + (size_t)ik_world_words(w) + other <= ik_smem_limit_words();
+}
+static inline int ik_world_global_words(const IKWorld& w) { return 4 + ik_world_words(w); }
+
+// Compacts the world into `buf` on `stream` when it goes to global memory and
+// returns the pointer the kernel takes (null for a world in shared memory);
+// *err gets the CUDA error (cudaErrorInvalidValue without a buffer).
+static inline const float* ik_stage_world(const IKWorld& w, bool fits, float* buf,
+                                          cudaStream_t stream, int* err) {
+  *err = 0;
+  if (fits) return nullptr;
+  if (buf == nullptr) {
+    *err = (int)cudaErrorInvalidValue;
+    return nullptr;
+  }
+  ik_compact_world_kernel<<<1, 32, 0, stream>>>(w, buf);
+  *err = (int)cudaGetLastError();
+  return buf;
+}
+
+// ---------------------------------------------------------------------------
+// Min signed distance of one point over the four (compacted, all enabled)
+// obstacle tables, first strict minimum in table order (cuboid, sphere,
+// capsule, cylinder), 1e6 when there is none; `arg` gets the winner as
+// (table << 24) | row, or -1. The scan computes distances only; the gradient
+// of the winner (`ik_scene_grad`) is taken afterwards where a caller needs it,
+// from the same expressions, so it is the gradient of the argmin obstacle.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float ik_cuboid_dist(const float* r, float x, float y, float z,
+                                                float* l, float* q, float& o) {
+  float ux = x - r[9], uy = y - r[10], uz = z - r[11];
+  l[0] = r[0] * ux + r[3] * uy + r[6] * uz;
+  l[1] = r[1] * ux + r[4] * uy + r[7] * uz;
+  l[2] = r[2] * ux + r[5] * uy + r[8] * uz;
+  q[0] = fabsf(l[0]) - r[12]; q[1] = fabsf(l[1]) - r[13]; q[2] = fabsf(l[2]) - r[14];
+  float mqx = fmaxf(q[0], 0.0f), mqy = fmaxf(q[1], 0.0f), mqz = fmaxf(q[2], 0.0f);
+  o = sqrtf(mqx * mqx + mqy * mqy + mqz * mqz + 1e-12f);
+  return o + fminf(fmaxf(q[0], fmaxf(q[1], q[2])), 0.0f);
+}
+
+__device__ __forceinline__ float ik_capsule_dist(const float* r, float x, float y, float z,
+                                                 float* u, float& n) {
+  float denom = fmaxf(r[3] * r[3] + r[4] * r[4] + r[5] * r[5], 1e-12f);
+  float px = x - r[0], py = y - r[1], pz = z - r[2];
+  float h = fminf(fmaxf((px * r[3] + py * r[4] + pz * r[5]) / denom, 0.0f), 1.0f);
+  u[0] = px - r[3] * h; u[1] = py - r[4] * h; u[2] = pz - r[5] * h;
+  n = sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + 1e-12f);
+  return n - r[6];
+}
+
+__device__ __forceinline__ float ik_cylinder_dist(const float* r, float x, float y, float z,
+                                                  float* l, float& rad, float& dr, float& dz,
+                                                  float& o) {
+  float ux = x - r[9], uy = y - r[10], uz = z - r[11];
+  l[0] = r[0] * ux + r[3] * uy + r[6] * uz;
+  l[1] = r[1] * ux + r[4] * uy + r[7] * uz;
+  l[2] = r[2] * ux + r[5] * uy + r[8] * uz;
+  rad = sqrtf(l[0] * l[0] + l[1] * l[1] + 1e-12f);
+  dr = rad - r[12];
+  dz = fabsf(l[2]) - r[13];
+  float mdr = fmaxf(dr, 0.0f), mdz = fmaxf(dz, 0.0f);
+  o = sqrtf(mdr * mdr + mdz * mdz + 1e-12f);
+  return o + fminf(fmaxf(dr, dz), 0.0f);
+}
+
+__device__ __forceinline__ float ik_scene_msdf(const IKWorld& w, float x, float y, float z,
+                                               int& arg) {
+  float md = 1.0e6f;
+  arg = -1;
+  for (int k = 0; k < w.Kc; ++k) {
+    float l[3], q[3], o;
+    float d = ik_cuboid_dist(w.cub + 16 * k, x, y, z, l, q, o);
+    if (d < md) { md = d; arg = k; }
   }
   for (int k = 0; k < w.Ks; ++k) {
     const float* r = w.sph + 5 * k;
-    if (!(r[4] > 0.5f)) continue;
     float ux = x - r[0], uy = y - r[1], uz = z - r[2];
-    float n = sqrtf(ux * ux + uy * uy + uz * uz + 1e-12f);
-    float d = n - r[3];
-    if (d < md) {
-      md = d;
-      if (want_grad) { g[0] = ux / n; g[1] = uy / n; g[2] = uz / n; }
-    }
+    float d = sqrtf(ux * ux + uy * uy + uz * uz + 1e-12f) - r[3];
+    if (d < md) { md = d; arg = (1 << 24) | k; }
   }
   for (int k = 0; k < w.Kp; ++k) {
-    const float* r = w.cap + 8 * k;
-    if (!(r[7] > 0.5f)) continue;
-    float denom = fmaxf(r[3] * r[3] + r[4] * r[4] + r[5] * r[5], 1e-12f);
-    float px = x - r[0], py = y - r[1], pz = z - r[2];
-    float h = fminf(fmaxf((px * r[3] + py * r[4] + pz * r[5]) / denom, 0.0f), 1.0f);
-    float ux = px - r[3] * h, uy = py - r[4] * h, uz = pz - r[5] * h;
-    float n = sqrtf(ux * ux + uy * uy + uz * uz + 1e-12f);
-    float d = n - r[6];
-    if (d < md) {
-      md = d;
-      if (want_grad) { g[0] = ux / n; g[1] = uy / n; g[2] = uz / n; }
-    }
+    float u[3], n;
+    float d = ik_capsule_dist(w.cap + 8 * k, x, y, z, u, n);
+    if (d < md) { md = d; arg = (2 << 24) | k; }
   }
   for (int k = 0; k < w.Ky; ++k) {
-    const float* r = w.cyl + 15 * k;
-    if (!(r[14] > 0.5f)) continue;
-    float ux = x - r[9], uy = y - r[10], uz = z - r[11];
-    float lx = r[0] * ux + r[3] * uy + r[6] * uz;
-    float ly = r[1] * ux + r[4] * uy + r[7] * uz;
-    float lz = r[2] * ux + r[5] * uy + r[8] * uz;
-    float rad = sqrtf(lx * lx + ly * ly + 1e-12f);
-    float dr = rad - r[12];
-    float dz = fabsf(lz) - r[13];
-    float mdr = fmaxf(dr, 0.0f), mdz = fmaxf(dz, 0.0f);
-    float o = sqrtf(mdr * mdr + mdz * mdz + 1e-12f);
-    float inside_max = fmaxf(dr, dz);
-    float d = o + fminf(inside_max, 0.0f);
-    if (d < md) {
-      md = d;
-      if (want_grad) {
-        float rx = lx / rad, ry = ly / rad, sz = ik_sign(lz);
-        float glx, gly, glz;
-        if (inside_max > 0.0f) {
-          glx = mdr * rx / o; gly = mdr * ry / o; glz = mdz * sz / o;
-        } else {
-          bool radial = dr >= dz;
-          glx = radial ? rx : 0.0f; gly = radial ? ry : 0.0f; glz = radial ? 0.0f : sz;
-        }
-        g[0] = r[0] * glx + r[1] * gly + r[2] * glz;
-        g[1] = r[3] * glx + r[4] * gly + r[5] * glz;
-        g[2] = r[6] * glx + r[7] * gly + r[8] * glz;
-      }
-    }
+    float l[3], rad, dr, dz, o;
+    float d = ik_cylinder_dist(w.cyl + 15 * k, x, y, z, l, rad, dr, dz, o);
+    if (d < md) { md = d; arg = (3 << 24) | k; }
   }
   return md;
 }
 
-// ---------------------------------------------------------------------------
-// Pieces of one evaluation shared by the IK and the trajectory kernels. `SC` is
-// a scratch accessor with `float& at(int slot)` (IKScratch here, TrajScratch in
-// traj_kernels.cu); link frames sit at slots oR (9 L) and oP (3 L), the
-// reverse-pass force and torque accumulators at oF and oT (3 L each), sphere
-// centres at oC and their cotangents at oG (3 S each).
-// ---------------------------------------------------------------------------
-template <class SC>
-__device__ __forceinline__ void ik_fk_forward(const IKRobot& rb, const SC& sc, const float* q,
-                                              int oR, int oP) {
-  for (int i = 0; i < rb.L; ++i) {
-    const int kind = rb.link_i[3 * i], par = rb.link_i[3 * i + 1], dof = rb.link_i[3 * i + 2];
-    const float* lf = rb.link_f + 17 * i;
-    float Rl[9], pl[3];
-    if (kind == 1) {
-      float val = lf[0] * q[dof] + lf[1];
-      float s, c;
-      sincosf(val, &s, &c);
-      float ax = lf[14], ay = lf[15], az = lf[16], omc = 1.0f - c;
-      float r[9] = {c + omc * ax * ax,      omc * ax * ay - s * az, omc * ax * az + s * ay,
-                    omc * ax * ay + s * az, c + omc * ay * ay,      omc * ay * az - s * ax,
-                    omc * ax * az - s * ay, omc * ay * az + s * ax, c + omc * az * az};
-      for (int a = 0; a < 3; ++a)
-        for (int b = 0; b < 3; ++b)
-          Rl[3 * a + b] = lf[2 + 3 * a] * r[b] + lf[2 + 3 * a + 1] * r[3 + b] + lf[2 + 3 * a + 2] * r[6 + b];
-      pl[0] = lf[11]; pl[1] = lf[12]; pl[2] = lf[13];
+// The analytic gradient of the signed distance of obstacle `arg` (as set by
+// ik_scene_msdf) at (x, y, z); zero for -1.
+__device__ __forceinline__ void ik_scene_grad(const IKWorld& w, int arg, float x, float y,
+                                              float z, float& g0, float& g1, float& g2) {
+  g0 = g1 = g2 = 0.0f;
+  if (arg < 0) return;
+  const int table = arg >> 24, k = arg & 0xffffff;
+  if (table == 0) {
+    const float* r = w.cub + 16 * k;
+    float l[3], q[3], o;
+    ik_cuboid_dist(r, x, y, z, l, q, o);
+    float sx = ik_sign(l[0]), sy = ik_sign(l[1]), sz = ik_sign(l[2]);
+    float glx, gly, glz;
+    if (fmaxf(q[0], fmaxf(q[1], q[2])) > 0.0f) {
+      glx = sx * fmaxf(q[0], 0.0f) / o; gly = sy * fmaxf(q[1], 0.0f) / o; glz = sz * fmaxf(q[2], 0.0f) / o;
     } else {
-      for (int a = 0; a < 9; ++a) Rl[a] = lf[2 + a];
-      pl[0] = lf[11]; pl[1] = lf[12]; pl[2] = lf[13];
-      if (kind == 2) {
-        float val = lf[0] * q[dof] + lf[1];
-        float ax = lf[14] * val, ay = lf[15] * val, az = lf[16] * val;
-        for (int a = 0; a < 3; ++a)
-          pl[a] += lf[2 + 3 * a] * ax + lf[2 + 3 * a + 1] * ay + lf[2 + 3 * a + 2] * az;
-      }
+      bool ax = (q[0] >= q[1]) && (q[0] >= q[2]);
+      bool ay = (!ax) && (q[1] >= q[2]);
+      bool az = !(ax || ay);
+      glx = ax ? sx : 0.0f; gly = ay ? sy : 0.0f; glz = az ? sz : 0.0f;
     }
-    if (par < 0) {
-      for (int a = 0; a < 9; ++a) sc.at(oR + 9 * i + a) = Rl[a];
-      for (int a = 0; a < 3; ++a) sc.at(oP + 3 * i + a) = pl[a];
+    g0 = r[0] * glx + r[1] * gly + r[2] * glz;
+    g1 = r[3] * glx + r[4] * gly + r[5] * glz;
+    g2 = r[6] * glx + r[7] * gly + r[8] * glz;
+  } else if (table == 1) {
+    const float* r = w.sph + 5 * k;
+    float ux = x - r[0], uy = y - r[1], uz = z - r[2];
+    float n = sqrtf(ux * ux + uy * uy + uz * uz + 1e-12f);
+    g0 = ux / n; g1 = uy / n; g2 = uz / n;
+  } else if (table == 2) {
+    float u[3], n;
+    ik_capsule_dist(w.cap + 8 * k, x, y, z, u, n);
+    g0 = u[0] / n; g1 = u[1] / n; g2 = u[2] / n;
+  } else {
+    const float* r = w.cyl + 15 * k;
+    float l[3], rad, dr, dz, o;
+    ik_cylinder_dist(r, x, y, z, l, rad, dr, dz, o);
+    float rx = l[0] / rad, ry = l[1] / rad, sz = ik_sign(l[2]);
+    float glx, gly, glz;
+    if (fmaxf(dr, dz) > 0.0f) {
+      glx = fmaxf(dr, 0.0f) * rx / o; gly = fmaxf(dr, 0.0f) * ry / o; glz = fmaxf(dz, 0.0f) * sz / o;
     } else {
-      float Rp[9];
-      for (int a = 0; a < 9; ++a) Rp[a] = sc.at(oR + 9 * par + a);
-      for (int a = 0; a < 3; ++a) {
-        for (int b = 0; b < 3; ++b)
-          sc.at(oR + 9 * i + 3 * a + b) =
-              Rp[3 * a] * Rl[b] + Rp[3 * a + 1] * Rl[3 + b] + Rp[3 * a + 2] * Rl[6 + b];
-        sc.at(oP + 3 * i + a) = sc.at(oP + 3 * par + a) + Rp[3 * a] * pl[0] +
-                                Rp[3 * a + 1] * pl[1] + Rp[3 * a + 2] * pl[2];
-      }
+      bool radial = dr >= dz;
+      glx = radial ? rx : 0.0f; gly = radial ? ry : 0.0f; glz = radial ? 0.0f : sz;
     }
+    g0 = r[0] * glx + r[1] * gly + r[2] * glz;
+    g1 = r[3] * glx + r[4] * gly + r[5] * glz;
+    g2 = r[6] * glx + r[7] * gly + r[8] * glz;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Pieces of one evaluation, run by the 32 lanes of a warp on its state `st`
+// (layout `ik_layout`). Each ends with the warp's writes visible to all lanes.
+// ---------------------------------------------------------------------------
+
+// Link frames from q (st[oQ + dof]): a serial sweep over the links; lanes
+// 0..8 compute one entry of the link's rotation, lanes 9..11 one of its origin.
+__device__ __forceinline__ void ik_fk_forward(const IKRobot& rb, float* st, const IKLayout& o) {
+  const int lane = ik_lane();
+  for (int i = 0; i < rb.L; ++i) {
+    if (lane < 12) {
+      const int kind = rb.link_i[3 * i], par = rb.link_i[3 * i + 1], dof = rb.link_i[3 * i + 2];
+      const float* lf = rb.link_f + 17 * i;
+      float Rl[9], pl[3];
+      if (kind == 1) {
+        float val = lf[0] * st[o.oQ + dof] + lf[1];
+        float s, c;
+        sincosf(val, &s, &c);
+        float ax = lf[14], ay = lf[15], az = lf[16], omc = 1.0f - c;
+        float r[9] = {c + omc * ax * ax,      omc * ax * ay - s * az, omc * ax * az + s * ay,
+                      omc * ax * ay + s * az, c + omc * ay * ay,      omc * ay * az - s * ax,
+                      omc * ax * az - s * ay, omc * ay * az + s * ax, c + omc * az * az};
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+          for (int b = 0; b < 3; ++b)
+            Rl[3 * a + b] = lf[2 + 3 * a] * r[b] + lf[2 + 3 * a + 1] * r[3 + b] + lf[2 + 3 * a + 2] * r[6 + b];
+        pl[0] = lf[11]; pl[1] = lf[12]; pl[2] = lf[13];
+      } else {
+#pragma unroll
+        for (int a = 0; a < 9; ++a) Rl[a] = lf[2 + a];
+        pl[0] = lf[11]; pl[1] = lf[12]; pl[2] = lf[13];
+        if (kind == 2) {
+          float val = lf[0] * st[o.oQ + dof] + lf[1];
+          float ax = lf[14] * val, ay = lf[15] * val, az = lf[16] * val;
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            pl[a] += lf[2 + 3 * a] * ax + lf[2 + 3 * a + 1] * ay + lf[2 + 3 * a + 2] * az;
+        }
+      }
+      if (lane < 9) {
+        const int a = lane / 3, b = lane - 3 * (lane / 3);
+        // column b of Rl, selected without indexing a register array
+        float c0 = Rl[0], c1 = Rl[3], c2 = Rl[6];
+        if (b == 1) { c0 = Rl[1]; c1 = Rl[4]; c2 = Rl[7]; }
+        if (b == 2) { c0 = Rl[2]; c1 = Rl[5]; c2 = Rl[8]; }
+        float v;
+        if (par < 0) {
+          v = (a == 0) ? c0 : ((a == 1) ? c1 : c2);
+        } else {
+          const float* Rp = st + o.oR + 9 * par + 3 * a;
+          v = Rp[0] * c0 + Rp[1] * c1 + Rp[2] * c2;
+        }
+        st[o.oR + 9 * i + lane] = v;
+      } else {
+        const int a = lane - 9;
+        float v;
+        if (par < 0) {
+          v = (a == 0) ? pl[0] : ((a == 1) ? pl[1] : pl[2]);
+        } else {
+          const float* Rp = st + o.oR + 9 * par + 3 * a;
+          v = st[o.oP + 3 * par + a] + Rp[0] * pl[0] + Rp[1] * pl[1] + Rp[2] * pl[2];
+        }
+        st[o.oP + 3 * i + a] = v;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Sphere centres, lane l owning spheres l, l + 32, ...
+__device__ __forceinline__ void ik_centres(const IKRobot& rb, float* st, const IKLayout& o) {
+  for (int si = ik_lane(); si < rb.S; si += 32) {
+    const float* sf = rb.sph_f + 4 * si;
+    const int li = rb.sph_link[si];
+    const float* R = st + o.oR + 9 * li;
+    const float* P = st + o.oP + 3 * li;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      st[o.oC + 3 * si + a] = R[3 * a] * sf[0] + R[3 * a + 1] * sf[1] + R[3 * a + 2] * sf[2] + P[a];
+  }
+  __syncwarp();
 }
 
 // Position and rotation error of the tool frame (rotation Rt, origin tp)
@@ -291,299 +528,339 @@ __device__ __forceinline__ IKPoseErr ik_pose_error(const float* goal, const floa
   return e;
 }
 
-// Cotangent of pos_w * pe2 + rot_w * re2 as a force on the tool origin and a
-// torque (about the world origin) on the tool link. Overwrites the tool's
-// accumulators, which the caller has zeroed.
-template <class SC>
-__device__ __forceinline__ void ik_tool_wrench(const SC& sc, int ti, int oF, int oT, float pos_w,
-                                               float rot_w, const IKPoseErr& e, const float* Rt,
-                                               const float* tp) {
-  // position term: force on the tool origin; rotation term: pure torque
-  float fx = -2.0f * pos_w * e.dx, fy = -2.0f * pos_w * e.dy, fz = -2.0f * pos_w * e.dz;
-  float ex = e.rx * e.scale, ey = e.ry * e.scale, ez = e.rz * e.scale;
-  float k = 2.0f * rot_w;
-  float tx = k * (Rt[0] * ex + Rt[1] * ey + Rt[2] * ez);
-  float ty = k * (Rt[3] * ex + Rt[4] * ey + Rt[5] * ez);
-  float tz = k * (Rt[6] * ex + Rt[7] * ey + Rt[8] * ez);
-  sc.at(oF + 3 * ti) = fx; sc.at(oF + 3 * ti + 1) = fy; sc.at(oF + 3 * ti + 2) = fz;
-  sc.at(oT + 3 * ti) = tx + tp[1] * fz - tp[2] * fy;
-  sc.at(oT + 3 * ti + 1) = ty + tp[2] * fx - tp[0] * fz;
-  sc.at(oT + 3 * ti + 2) = tz + tp[0] * fy - tp[1] * fx;
-}
-
-// Sphere-centre cotangents (slot oG) -> force and torque on their links.
-template <class SC>
-__device__ __forceinline__ void ik_sphere_wrench(const IKRobot& rb, const SC& sc, int oC, int oG,
-                                                 int oF, int oT) {
-  for (int si = 0; si < rb.S; ++si) {
-    const int li = rb.sph_link[si];
-    float fx = sc.at(oG + 3 * si), fy = sc.at(oG + 3 * si + 1), fz = sc.at(oG + 3 * si + 2);
-    if (fx == 0.0f && fy == 0.0f && fz == 0.0f) continue;
-    float cx = sc.at(oC + 3 * si), cy = sc.at(oC + 3 * si + 1), cz = sc.at(oC + 3 * si + 2);
-    sc.at(oF + 3 * li) += fx; sc.at(oF + 3 * li + 1) += fy; sc.at(oF + 3 * li + 2) += fz;
-    sc.at(oT + 3 * li) += cy * fz - cz * fy;
-    sc.at(oT + 3 * li + 1) += cz * fx - cx * fz;
-    sc.at(oT + 3 * li + 2) += cx * fy - cy * fx;
-  }
-}
-
-// Reverse sweep, leaves to root: the accumulated wrenches become d/dq, added
-// into grad (which holds the direct terms already).
-template <class SC>
-__device__ __forceinline__ void ik_fk_reverse(const IKRobot& rb, const SC& sc, float* grad, int oR,
-                                              int oP, int oF, int oT) {
-  for (int i = rb.L - 1; i >= 0; --i) {
-    const int kind = rb.link_i[3 * i], par = rb.link_i[3 * i + 1], dof = rb.link_i[3 * i + 2];
-    float F[3], T[3];
-    for (int a = 0; a < 3; ++a) { F[a] = sc.at(oF + 3 * i + a); T[a] = sc.at(oT + 3 * i + a); }
-    if (kind != 0) {
-      const float* lf = rb.link_f + 17 * i;
-      float aw[3];
-      for (int a = 0; a < 3; ++a)
-        aw[a] = sc.at(oR + 9 * i + 3 * a) * lf[14] + sc.at(oR + 9 * i + 3 * a + 1) * lf[15] +
-                sc.at(oR + 9 * i + 3 * a + 2) * lf[16];
-      float g;
-      if (kind == 1) {
-        float px = sc.at(oP + 3 * i), py = sc.at(oP + 3 * i + 1), pz = sc.at(oP + 3 * i + 2);
-        float qx = T[0] - (py * F[2] - pz * F[1]);
-        float qy = T[1] - (pz * F[0] - px * F[2]);
-        float qz = T[2] - (px * F[1] - py * F[0]);
-        g = aw[0] * qx + aw[1] * qy + aw[2] * qz;
-      } else {
-        g = aw[0] * F[0] + aw[1] * F[1] + aw[2] * F[2];
-      }
-      grad[dof] += lf[0] * g;
-    }
-    if (par >= 0)
-      for (int a = 0; a < 3; ++a) { sc.at(oF + 3 * par + a) += F[a]; sc.at(oT + 3 * par + a) += T[a]; }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The IK objective of one configuration: FK, pose error, joint-limit and
-// null-space penalties, self-collision hinge, scene penalty; with IK_WANT_GRAD
-// its gradient by the hand-written reverse pass; with IK_METRICS the raw
-// quantities of the feasibility test. Scratch slots [0, 18 L + 6 S).
-// ---------------------------------------------------------------------------
-__device__ __noinline__ float ik_eval(const IKRobot& rb, const IKWorld& w, const IKScratch& sc,
-                                      const float* goal, const float* q, float* grad,
-                                      int flags, IKMetrics* met) {
-  const bool want_grad = (flags & IK_WANT_GRAD) != 0;
-  const bool pose_only = (flags & IK_POSE_ONLY) != 0;
-  const bool metrics = (flags & IK_METRICS) != 0;
-  const int L = rb.L, S = rb.S, D = rb.D;
-  const int oR = 0, oP = 9 * L, oF = 12 * L, oT = 15 * L, oC = 18 * L, oG = 18 * L + 3 * S;
-  const float pos_w = rb.cfg_f[0], rot_w = rb.cfg_f[1], bound_w = rb.cfg_f[2];
-  const float null_w = rb.cfg_f[3], sc_w = rb.cfg_f[4], sc_act = rb.cfg_f[5];
+// Self-collision hinge and (swept) scene term of the spheres this lane owns.
+// Step h's scene samples run from the previous step's centres (its state at
+// st + prev, `prev` words away; IK passes 0) to its own, K samples with the
+// last at its own centres (IK: K = 1). Returns the lane's share of
+// sc_w * hinge + coll_w * scene. With want_grad it writes every owned sphere's
+// cotangent G and, where oGp >= 0, the cotangent on the previous step's centre
+// at st + oGp (the sweep samples add into the owner lane's shared slots, which
+// keeps them out of registers); with metrics it folds the pair violations into
+// self_viol and the last sample's clearances into min_clear. Offsets rather
+// than pointers keep the loop's registers down.
+__device__ __forceinline__ float ik_sphere_terms(const IKRobot& rb, const IKWorld& w, float* st,
+                                                 const IKLayout& o, int prev, int K,
+                                                 bool speed_metric, bool want_grad, int oGp,
+                                                 bool metrics, float& self_viol, float& min_clear) {
+  const float sc_w = rb.cfg_f[4], sc_act = rb.cfg_f[5];
   const float coll_w = rb.cfg_f[6], coll_act = rb.cfg_f[7];
-
-  // ---- forward kinematics ---------------------------------------------------
-  ik_fk_forward(rb, sc, q, oR, oP);
-
-  // ---- pose error of the tool frame -------------------------------------------
-  const int ti = rb.tool;
-  float Rt[9], tp[3];
-  for (int a = 0; a < 9; ++a) Rt[a] = sc.at(oR + 9 * ti + a);
-  for (int a = 0; a < 3; ++a) tp[a] = sc.at(oP + 3 * ti + a);
-  const IKPoseErr pe = ik_pose_error(goal, Rt, tp);
-  const float pe2 = pe.pe2, re2 = pe.re2;
-  float cost = pos_w * pe2 + rot_w * re2;
-
-  // ---- joint limits + null space -------------------------------------------------
-  for (int d = 0; d < D; ++d) {
-    const float* df = rb.dof_f + 6 * d;
-    float lo_v = fmaxf(df[0] - q[d], 0.0f), hi_v = fmaxf(q[d] - df[1], 0.0f);
-    float viol = lo_v + hi_v;
-    cost += bound_w * viol * viol;
-    float gd = 0.0f;
-    if (want_grad)
-      gd = 2.0f * bound_w * viol * ((hi_v > 0.0f ? 1.0f : 0.0f) - (lo_v > 0.0f ? 1.0f : 0.0f));
-    if (null_w > 0.0f) {
-      float dn = (q[d] - df[4]) * df[5];
-      cost += null_w * dn * dn;
-      if (want_grad) gd += 2.0f * null_w * dn * df[5];
-    }
-    if (want_grad) grad[d] = gd;
-  }
-
-  if (want_grad) {
-    for (int a = 0; a < 3 * L; ++a) { sc.at(oF + a) = 0.0f; sc.at(oT + a) = 0.0f; }
-    ik_tool_wrench(sc, ti, oF, oT, pos_w, rot_w, pe, Rt, tp);
-  }
-
-  float self_viol = -1.0e6f, min_clear = 1.0e6f;
-  if (!pose_only) {
-    // ---- sphere centres ------------------------------------------------------------
-    for (int si = 0; si < S; ++si) {
-      const float* sf = rb.sph_f + 4 * si;
-      const int li = rb.sph_link[si];
-      for (int a = 0; a < 3; ++a) {
-        sc.at(oC + 3 * si + a) = sc.at(oR + 9 * li + 3 * a) * sf[0] +
-                                 sc.at(oR + 9 * li + 3 * a + 1) * sf[1] +
-                                 sc.at(oR + 9 * li + 3 * a + 2) * sf[2] + sc.at(oP + 3 * li + a);
-        if (want_grad) sc.at(oG + 3 * si + a) = 0.0f;
-      }
-    }
-    // ---- self collision: hinge over live pairs ------------------------------------------
-    float sc_sum = 0.0f;
-    for (int k = 0; k < rb.P; ++k) {
-      const int a = rb.pair_i[2 * k], b = rb.pair_i[2 * k + 1];
+  const float ct_base = -coll_w / (float)K;
+  float part = 0.0f;
+  for (int si = ik_lane(); si < rb.S; si += 32) {
+    const float sx = st[o.oC + 3 * si], sy = st[o.oC + 3 * si + 1], sz = st[o.oC + 3 * si + 2];
+    float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+    // ---- self collision: this sphere's live pairs, cost at the lower index --
+    float hinge = 0.0f;
+    for (int k = rb.pair_off[si]; k < rb.pair_off[si + 1]; ++k) {
+      const int t = rb.pair_j[k];
       const float m = rb.pair_m[k];
-      float ddx = sc.at(oC + 3 * a) - sc.at(oC + 3 * b);
-      float ddy = sc.at(oC + 3 * a + 1) - sc.at(oC + 3 * b + 1);
-      float ddz = sc.at(oC + 3 * a + 2) - sc.at(oC + 3 * b + 2);
+      float ddx = sx - st[o.oC + 3 * t];
+      float ddy = sy - st[o.oC + 3 * t + 1];
+      float ddz = sz - st[o.oC + 3 * t + 2];
       float dist = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz + 1e-12f);
       float h = m + sc_act - dist;
       if (h > 0.0f) {
-        sc_sum += h;
+        if (si < t) hinge += h;
         if (want_grad) {
           float cf = -sc_w / dist;
-          sc.at(oG + 3 * a) += cf * ddx; sc.at(oG + 3 * a + 1) += cf * ddy; sc.at(oG + 3 * a + 2) += cf * ddz;
-          sc.at(oG + 3 * b) -= cf * ddx; sc.at(oG + 3 * b + 1) -= cf * ddy; sc.at(oG + 3 * b + 2) -= cf * ddz;
+          gx += cf * ddx; gy += cf * ddy; gz += cf * ddz;
         }
       }
       if (metrics) self_viol = fmaxf(self_viol, m - dist);
     }
-    cost += sc_w * sc_sum;
-    // ---- scene: penalty on the min signed distance of every live sphere --------------
-    float pen = 0.0f;
-    for (int si = 0; si < S; ++si) {
-      const float rad = rb.sph_f[4 * si + 3];
-      if (rad < 0.0f) continue;
-      float g3[3];
-      float msdf = ik_scene_msdf(w, sc.at(oC + 3 * si), sc.at(oC + 3 * si + 1),
-                                 sc.at(oC + 3 * si + 2), want_grad, g3);
-      float viol = coll_act + rad - msdf;
-      if (viol > 0.0f) {
-        pen += viol;
-        if (want_grad)
-          for (int a = 0; a < 3; ++a) sc.at(oG + 3 * si + a) -= coll_w * g3[a];
-      }
-      if (metrics) min_clear = fminf(min_clear, msdf - rad);
+    part += sc_w * hinge;
+    const int g = o.oG + 3 * si, gp = oGp + 3 * si;
+    if (want_grad) {
+      st[g] = gx; st[g + 1] = gy; st[g + 2] = gz;
+      if (oGp >= 0) { st[gp] = 0.0f; st[gp + 1] = 0.0f; st[gp + 2] = 0.0f; }
     }
-    cost += coll_w * pen;
-    // ---- sphere cotangents -> force and torque on their links ----------------------------
-    if (want_grad) ik_sphere_wrench(rb, sc, oC, oG, oF, oT);
+    // ---- scene: K samples from the previous step's centre to this one --------
+    const float rad = rb.sph_f[4 * si + 3];
+    if (rad >= 0.0f) {
+      const int c = prev + o.oC + 3 * si;
+      const float px = st[c], py = st[c + 1], pz = st[c + 2];
+      float spd = 1.0f, nrm = 1.0f;
+      if (speed_metric) {
+        float ex = sx - px, ey = sy - py, ez = sz - pz;
+        nrm = sqrtf(ex * ex + ey * ey + ez * ez + 1e-12f);
+        spd = nrm + 1e-3f;
+      }
+      float pen = 0.0f;
+      for (int k = 1; k <= K; ++k) {
+        const float alpha = (float)((double)k / (double)K);
+        const float om = (float)(1.0 - (double)k / (double)K);
+        const float qx = px * om + sx * alpha, qy = py * om + sy * alpha, qz = pz * om + sz * alpha;
+        int arg;
+        const float msdf = ik_scene_msdf(w, qx, qy, qz, arg);
+        const float viol = coll_act + rad - msdf;
+        pen += fmaxf(0.0f, viol);
+        if (want_grad && viol > 0.0f) {
+          float g0, g1, g2;
+          ik_scene_grad(w, arg, qx, qy, qz, g0, g1, g2);
+          const float ct = ct_base * spd;
+          st[g] += alpha * ct * g0; st[g + 1] += alpha * ct * g1; st[g + 2] += alpha * ct * g2;
+          if (oGp >= 0) {
+            st[gp] += om * ct * g0; st[gp + 1] += om * ct * g1; st[gp + 2] += om * ct * g2;
+          }
+        }
+        if (metrics && k == K) min_clear = fminf(min_clear, msdf - rad);
+      }
+      pen = pen / (float)K;
+      part += coll_w * (pen * spd);
+      if (want_grad && speed_metric) {
+        const float cspd = coll_w * pen / nrm;
+        st[g] += cspd * (sx - px); st[g + 1] += cspd * (sy - py); st[g + 2] += cspd * (sz - pz);
+        if (oGp >= 0) {
+          st[gp] -= cspd * (sx - px); st[gp + 1] -= cspd * (sy - py); st[gp + 2] -= cspd * (sz - pz);
+        }
+      }
+    }
+  }
+  return part;
+}
+
+// Per-link force and torque (about the world origin): lane l owns links l,
+// l + 32, ...; the tool link starts from the cotangent of
+// pos_w * pe2 + rot_w * re2 when `tool_on` (a force on the tool origin and a
+// pure torque), then every link adds the cotangents of its live spheres in
+// sphere order (when `spheres`).
+__device__ __forceinline__ void ik_wrenches(const IKRobot& rb, float* st, const IKLayout& o,
+                                            bool tool_on, float pos_w, float rot_w,
+                                            const IKPoseErr& e, bool spheres) {
+  for (int l = ik_lane(); l < rb.L; l += 32) {
+    float F0 = 0.0f, F1 = 0.0f, F2 = 0.0f, T0 = 0.0f, T1 = 0.0f, T2 = 0.0f;
+    if (tool_on && l == rb.tool) {
+      const float* Rt = st + o.oR + 9 * l;
+      const float* tp = st + o.oP + 3 * l;
+      F0 = -2.0f * pos_w * e.dx; F1 = -2.0f * pos_w * e.dy; F2 = -2.0f * pos_w * e.dz;
+      float ex = e.rx * e.scale, ey = e.ry * e.scale, ez = e.rz * e.scale;
+      float k = 2.0f * rot_w;
+      float tx = k * (Rt[0] * ex + Rt[1] * ey + Rt[2] * ez);
+      float ty = k * (Rt[3] * ex + Rt[4] * ey + Rt[5] * ez);
+      float tz = k * (Rt[6] * ex + Rt[7] * ey + Rt[8] * ez);
+      T0 = tx + tp[1] * F2 - tp[2] * F1;
+      T1 = ty + tp[2] * F0 - tp[0] * F2;
+      T2 = tz + tp[0] * F1 - tp[1] * F0;
+    }
+    if (spheres) {
+      for (int k = rb.lsph_off[l]; k < rb.lsph_off[l + 1]; ++k) {
+        const int si = rb.lsph[k];
+        float fx = st[o.oG + 3 * si], fy = st[o.oG + 3 * si + 1], fz = st[o.oG + 3 * si + 2];
+        if (fx == 0.0f && fy == 0.0f && fz == 0.0f) continue;
+        float cx = st[o.oC + 3 * si], cy = st[o.oC + 3 * si + 1], cz = st[o.oC + 3 * si + 2];
+        F0 += fx; F1 += fy; F2 += fz;
+        T0 += cy * fz - cz * fy;
+        T1 += cz * fx - cx * fz;
+        T2 += cx * fy - cy * fx;
+      }
+    }
+    st[o.oF + 3 * l] = F0; st[o.oF + 3 * l + 1] = F1; st[o.oF + 3 * l + 2] = F2;
+    st[o.oT + 3 * l] = T0; st[o.oT + 3 * l + 1] = T1; st[o.oT + 3 * l + 2] = T2;
+  }
+  __syncwarp();
+}
+
+// Reverse sweep, leaves to root, on lane 0: the accumulated wrenches become
+// d/dq, added into grad (which holds the direct terms already).
+__device__ __forceinline__ void ik_fk_reverse(const IKRobot& rb, float* st, const IKLayout& o,
+                                              float* grad) {
+  if (ik_lane() == 0) {
+    for (int i = rb.L - 1; i >= 0; --i) {
+      const int kind = rb.link_i[3 * i], par = rb.link_i[3 * i + 1], dof = rb.link_i[3 * i + 2];
+      float F[3], T[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) { F[a] = st[o.oF + 3 * i + a]; T[a] = st[o.oT + 3 * i + a]; }
+      if (kind != 0) {
+        const float* lf = rb.link_f + 17 * i;
+        const float* R = st + o.oR + 9 * i;
+        float aw[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) aw[a] = R[3 * a] * lf[14] + R[3 * a + 1] * lf[15] + R[3 * a + 2] * lf[16];
+        float g;
+        if (kind == 1) {
+          float px = st[o.oP + 3 * i], py = st[o.oP + 3 * i + 1], pz = st[o.oP + 3 * i + 2];
+          float qx = T[0] - (py * F[2] - pz * F[1]);
+          float qy = T[1] - (pz * F[0] - px * F[2]);
+          float qz = T[2] - (px * F[1] - py * F[0]);
+          g = aw[0] * qx + aw[1] * qy + aw[2] * qz;
+        } else {
+          g = aw[0] * F[0] + aw[1] * F[1] + aw[2] * F[2];
+        }
+        grad[dof] += lf[0] * g;
+      }
+      if (par >= 0) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) { st[o.oF + 3 * par + a] += F[a]; st[o.oT + 3 * par + a] += T[a]; }
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// The IK objective of one configuration, on one warp: FK, pose error,
+// joint-limit and null-space penalties, self-collision hinge, scene penalty;
+// with IK_WANT_GRAD its gradient by the hand-written reverse pass; with
+// IK_METRICS the raw quantities of the feasibility test. Lane d < D holds x_d
+// and receives g_d; `goal` is 7 words of shared memory. Returns the cost on
+// every lane.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float ik_eval(const IKRobot& rb, const IKWorld& w, float* st,
+                                      const float* goal, float x, float& g, int flags,
+                                      IKMetrics* met) {
+  const bool want_grad = (flags & IK_WANT_GRAD) != 0;
+  const bool pose_only = (flags & IK_POSE_ONLY) != 0;
+  const bool metrics = (flags & IK_METRICS) != 0;
+  const int lane = ik_lane(), D = rb.D;
+  const IKLayout o = ik_layout(rb.L, rb.S);
+  const float pos_w = rb.cfg_f[0], rot_w = rb.cfg_f[1], bound_w = rb.cfg_f[2];
+  const float null_w = rb.cfg_f[3];
+
+  if (lane < D) st[o.oQ + lane] = x;
+  __syncwarp();
+  ik_fk_forward(rb, st, o);
+  const IKPoseErr pe = ik_pose_error(goal, st + o.oR + 9 * rb.tool, st + o.oP + 3 * rb.tool);
+
+  // ---- joint limits + null space: lane d, dof d -------------------------------
+  float part = 0.0f, gd = 0.0f;
+  if (lane < D) {
+    const float* df = rb.dof_f + 6 * lane;
+    float lo_v = fmaxf(df[0] - x, 0.0f), hi_v = fmaxf(x - df[1], 0.0f);
+    float viol = lo_v + hi_v;
+    part = bound_w * viol * viol;
+    gd = 2.0f * bound_w * viol * ((hi_v > 0.0f ? 1.0f : 0.0f) - (lo_v > 0.0f ? 1.0f : 0.0f));
+    if (null_w > 0.0f) {
+      float dn = (x - df[4]) * df[5];
+      part += null_w * dn * dn;
+      gd += 2.0f * null_w * dn * df[5];
+    }
   }
 
-  // ---- reverse sweep, leaves to root ------------------------------------------------
-  if (want_grad) ik_fk_reverse(rb, sc, grad, oR, oP, oF, oT);
+  float self_viol = -1.0e6f, min_clear = 1.0e6f;
+  if (!pose_only) {
+    ik_centres(rb, st, o);
+    part += ik_sphere_terms(rb, w, st, o, 0, 1, false, want_grad, -1, metrics, self_viol,
+                            min_clear);
+  }
+  const float cost = pos_w * pe.pe2 + rot_w * pe.re2 + ik_warp_sum(part);
 
+  if (want_grad) {
+    if (lane < D) st[o.oGQ + lane] = gd;
+    __syncwarp();
+    ik_wrenches(rb, st, o, true, pos_w, rot_w, pe, !pose_only);
+    ik_fk_reverse(rb, st, o, st + o.oGQ);
+    g = (lane < D) ? st[o.oGQ + lane] : 0.0f;
+  }
   if (metrics) {
-    met->pe2 = pe2; met->re2 = re2; met->self_viol = self_viol; met->min_clear = min_clear;
+    met->pe2 = pe.pe2; met->re2 = pe.re2;
+    met->self_viol = ik_warp_max(self_viol);
+    met->min_clear = ik_warp_min(min_clear);
   }
   return cost;
 }
 
-__device__ __forceinline__ void ik_clip(const IKRobot& rb, float* x) {
-  for (int d = 0; d < rb.D; ++d)
-    x[d] = fminf(fmaxf(x[d], rb.dof_f[6 * d + 2]), rb.dof_f[6 * d + 3]);
-}
-
-__device__ __forceinline__ float ik_dot(const float* a, const float* b, int D) {
-  float s = 0.0f;
-  for (int d = 0; d < D; ++d) s += a[d] * b[d];
-  return s;
+__device__ __forceinline__ float ik_clip(const IKRobot& rb, float x) {
+  const int lane = ik_lane();
+  if (lane >= rb.D) return 0.0f;
+  return fminf(fmaxf(x, rb.dof_f[6 * lane + 2]), rb.dof_f[6 * lane + 3]);
 }
 
 // ---------------------------------------------------------------------------
 // L-BFGS with two-loop recursion over a ring of `m` history slots (logical slot
-// m-1 is the newest) and a best-of-n backtracking line search. `mode` is 0 for
-// the full objective or IK_POSE_ONLY for the warm-up stage. x is replaced by
-// the best iterate after a gradient evaluation. History scratch starts at slot
-// `oH`: S (m D), Y (m D), rho (m), valid (m), alpha (m).
+// m-1 is the newest) and a best-of-n backtracking line search, on one warp:
+// lane d keeps the d-th entry of every vector in a register and the history
+// lies in the warp's shared memory `hist`: S (m D), Y (m D), rho (m), valid
+// (m), alpha (m). `mode` is 0 for the full objective or IK_POSE_ONLY for the
+// warm-up stage. x is replaced by the best iterate after a gradient
+// evaluation.
 // ---------------------------------------------------------------------------
-__device__ __noinline__ float ik_lbfgs(const IKRobot& rb, const IKWorld& w, const IKScratch& sc,
-                                       int oH, const float* goal, float* x, int mode, int n_iters,
-                                       int m, float max_step, int n_ls, float ls_base,
-                                       float ls_log_ratio) {
-  const int D = rb.D;
-  const int oS = oH, oY = oH + m * D, oRho = oH + 2 * m * D, oV = oRho + m, oA = oV + m;
-  float g[IK_MAXD], dvec[IK_MAXD], xn[IK_MAXD], gn[IK_MAXD], bx[IK_MAXD], r[IK_MAXD];
-  ik_clip(rb, x);
-  float c = ik_eval(rb, w, sc, goal, x, g, mode | IK_WANT_GRAD, nullptr);
-  for (int i = 0; i < m; ++i) sc.at(oV + i) = 0.0f;
+__host__ __device__ inline int ik_hist_words(int m, int D) { return 2 * m * D + 3 * m; }
+
+__device__ __forceinline__ float ik_lbfgs(const IKRobot& rb, const IKWorld& w, float* st,
+                                       float* hist, const float* goal, float& x, int mode,
+                                       int n_iters, int m, float max_step, int n_ls,
+                                       float ls_base, float ls_log_ratio) {
+  const int D = rb.D, lane = ik_lane();
+  const bool act = lane < D;
+  float* Sh = hist;
+  float* Yh = hist + m * D;
+  float* rho = hist + 2 * m * D;
+  float* valid = rho + m;
+  float* alph = valid + m;
+  x = ik_clip(rb, x);
+  float g;
+  float c = ik_eval(rb, w, st, goal, x, g, mode | IK_WANT_GRAD, nullptr);
+  for (int i = lane; i < m; i += 32) { valid[i] = 0.0f; rho[i] = 0.0f; }
+  __syncwarp();
   int head = 0;  // physical index of logical slot 0 (the oldest)
-  float bc = c;
-  for (int d = 0; d < D; ++d) bx[d] = x[d];
+  float bc = c, bx = x;
 
   for (int it = 0; it < n_iters; ++it) {
     // ---- two-loop recursion ---------------------------------------------------------
-    for (int d = 0; d < D; ++d) r[d] = g[d];
+    float r = g;
     for (int i = m - 1; i >= 0; --i) {
-      int ph = (head + i) % m;
+      const int ph = (head + i) % m;
       float a = 0.0f;
-      if (sc.at(oV + ph) > 0.0f) {
-        float sq = 0.0f;
-        for (int d = 0; d < D; ++d) sq += sc.at(oS + ph * D + d) * r[d];
-        a = sc.at(oRho + ph) * sq;
-        for (int d = 0; d < D; ++d) r[d] -= a * sc.at(oY + ph * D + d);
+      if (valid[ph] > 0.0f) {
+        a = rho[ph] * ik_warp_sum(act ? Sh[ph * D + lane] * r : 0.0f);
+        if (act) r -= a * Yh[ph * D + lane];
       }
-      sc.at(oA + i) = a;
+      if (lane == 0) alph[i] = a;
     }
     {
-      int ph = (head + m - 1) % m;
+      const int ph = (head + m - 1) % m;
       float gamma = 1.0f;
-      if (sc.at(oV + ph) > 0.0f) {
-        float sy = 0.0f, yy = 0.0f;
-        for (int d = 0; d < D; ++d) {
-          float yv = sc.at(oY + ph * D + d);
-          sy += sc.at(oS + ph * D + d) * yv;
-          yy += yv * yv;
-        }
+      if (valid[ph] > 0.0f) {
+        const float yv = act ? Yh[ph * D + lane] : 0.0f;
+        const float sy = ik_warp_sum(act ? Sh[ph * D + lane] * yv : 0.0f);
+        const float yy = ik_warp_sum(yv * yv);
         gamma = sy / fmaxf(yy, 1e-10f);
       }
-      for (int d = 0; d < D; ++d) r[d] *= gamma;
+      r *= gamma;
     }
+    __syncwarp();
     for (int i = 0; i < m; ++i) {
-      int ph = (head + i) % m;
-      if (sc.at(oV + ph) > 0.0f) {
-        float yr = 0.0f;
-        for (int d = 0; d < D; ++d) yr += sc.at(oY + ph * D + d) * r[d];
-        float coef = sc.at(oA + i) - sc.at(oRho + ph) * yr;
-        for (int d = 0; d < D; ++d) r[d] += sc.at(oS + ph * D + d) * coef;
+      const int ph = (head + i) % m;
+      if (valid[ph] > 0.0f) {
+        const float yr = ik_warp_sum(act ? Yh[ph * D + lane] * r : 0.0f);
+        const float coef = alph[i] - rho[ph] * yr;
+        if (act) r += Sh[ph * D + lane] * coef;
       }
     }
     // ---- descent safeguard, max-norm step clamp ----------------------------------------
-    float dg = 0.0f;
-    for (int d = 0; d < D; ++d) { dvec[d] = -r[d]; dg += dvec[d] * g[d]; }
-    if (!(dg < 0.0f))
-      for (int d = 0; d < D; ++d) dvec[d] = -g[d];
-    float dn = 0.0f;
-    for (int d = 0; d < D; ++d) dn = fmaxf(dn, fabsf(dvec[d]));
-    float sclamp = fminf(1.0f, max_step / fmaxf(dn, 1e-9f));
-    for (int d = 0; d < D; ++d) dvec[d] *= sclamp;
+    float dvec = act ? -r : 0.0f;
+    const float dg = ik_warp_sum(dvec * g);
+    if (!(dg < 0.0f)) dvec = act ? -g : 0.0f;
+    const float dn = ik_warp_max(fabsf(dvec));
+    dvec *= fminf(1.0f, max_step / fmaxf(dn, 1e-9f));
     // ---- line search: best of n_ls candidates, zero step if none is better ---------------
     float best_a = 0.0f, best_lc = c;
     for (int k = 0; k < n_ls; ++k) {
-      float alpha = ls_base * expf((float)k * ls_log_ratio);
-      for (int d = 0; d < D; ++d) xn[d] = x[d] + alpha * dvec[d];
-      ik_clip(rb, xn);
-      float ca = ik_eval(rb, w, sc, goal, xn, nullptr, mode, nullptr);
+      const float alpha = ls_base * expf((float)k * ls_log_ratio);
+      float gdummy;
+      const float ca = ik_eval(rb, w, st, goal, ik_clip(rb, x + alpha * dvec), gdummy, mode, nullptr);
       if (ca < best_lc) { best_a = alpha; best_lc = ca; }
     }
-    for (int d = 0; d < D; ++d) xn[d] = x[d] + best_a * dvec[d];
-    ik_clip(rb, xn);
-    float cn = ik_eval(rb, w, sc, goal, xn, gn, mode | IK_WANT_GRAD, nullptr);
+    const float xn = ik_clip(rb, x + best_a * dvec);
+    float gn;
+    const float cn = ik_eval(rb, w, st, goal, xn, gn, mode | IK_WANT_GRAD, nullptr);
     // ---- history: overwrite the oldest slot, which becomes the newest -------------------
-    float sy = 0.0f;
-    for (int d = 0; d < D; ++d) sy += (xn[d] - x[d]) * (gn[d] - g[d]);
-    bool ok = sy > 1e-10f;
-    for (int d = 0; d < D; ++d) {
-      sc.at(oS + head * D + d) = ok ? (xn[d] - x[d]) : 0.0f;
-      sc.at(oY + head * D + d) = ok ? (gn[d] - g[d]) : 0.0f;
+    const float sy = ik_warp_sum(act ? (xn - x) * (gn - g) : 0.0f);
+    const bool ok = sy > 1e-10f;
+    if (act) {
+      Sh[head * D + lane] = ok ? (xn - x) : 0.0f;
+      Yh[head * D + lane] = ok ? (gn - g) : 0.0f;
     }
-    sc.at(oRho + head) = ok ? 1.0f / fmaxf(sy, 1e-10f) : 0.0f;
-    sc.at(oV + head) = ok ? 1.0f : 0.0f;
+    if (lane == 0) {
+      rho[head] = ok ? 1.0f / fmaxf(sy, 1e-10f) : 0.0f;
+      valid[head] = ok ? 1.0f : 0.0f;
+    }
+    __syncwarp();
     head = (head + 1) % m;
-    if (cn < bc) {
-      bc = cn;
-      for (int d = 0; d < D; ++d) bx[d] = xn[d];
-    }
-    c = cn;
-    for (int d = 0; d < D; ++d) { x[d] = xn[d]; g[d] = gn[d]; }
+    if (cn < bc) { bc = cn; bx = xn; }
+    c = cn; x = xn; g = gn;
   }
-  for (int d = 0; d < D; ++d) x[d] = bx[d];
+  x = bx;
   return bc;
 }
 
@@ -612,71 +889,60 @@ __device__ __forceinline__ float ik_box_muller(unsigned int b1, unsigned int b2)
   return sqrtf(-2.0f * logf(u1)) * cosf(6.2831853071795865f * u2);
 }
 
-__device__ __forceinline__ void ik_normals(unsigned int k0, unsigned int k1, int n, int it, int pi,
-                                           int D, float* eps) {
-  for (int j = 0; 2 * j < D; ++j) {
-    unsigned int o[4];
-    ik_philox(k0, k1, (unsigned int)n, (unsigned int)it, (unsigned int)pi, (unsigned int)j, o);
-    eps[2 * j] = ik_box_muller(o[0], o[1]);
-    if (2 * j + 1 < D) eps[2 * j + 1] = ik_box_muller(o[2], o[3]);
-  }
+// The standard normal of dimension d of draw (n, it, pi).
+__device__ __forceinline__ float ik_normal(unsigned int k0, unsigned int k1, int n, int it, int pi,
+                                           int d) {
+  unsigned int o[4];
+  ik_philox(k0, k1, (unsigned int)n, (unsigned int)it, (unsigned int)pi, (unsigned int)(d >> 1), o);
+  return (d & 1) ? ik_box_muller(o[2], o[3]) : ik_box_muller(o[0], o[1]);
 }
 
 // ---------------------------------------------------------------------------
-// MPPI: streaming softmax over particles with a running-minimum shift; particle
-// 0 of every iteration is the mean itself; after the loop the mean is evaluated
-// once more and wins only if strictly better. `noise`, when not null, holds
-// pre-drawn standard normals (iters, particles, N, D) used instead of Philox.
+// MPPI on one warp (lane d, dof d): streaming softmax over particles with a
+// running-minimum shift; particle 0 of every iteration is the mean itself;
+// after the loop the mean is evaluated once more and wins only if strictly
+// better. `noise`, when not null, holds pre-drawn standard normals (iters,
+// particles, N, D) used instead of Philox.
 // ---------------------------------------------------------------------------
-__device__ __noinline__ float ik_mppi(const IKRobot& rb, const IKWorld& w, const IKScratch& sc,
-                                      const float* goal, float* x, const IKSolveCfg& cfg,
-                                      const float* noise, int N) {
-  const int D = rb.D;
-  float mean[IK_MAXD], bx[IK_MAXD], xp[IK_MAXD], num[IK_MAXD], eps[IK_MAXD];
-  for (int d = 0; d < D; ++d) mean[d] = x[d];
-  ik_clip(rb, mean);
-  float bc = ik_eval(rb, w, sc, goal, mean, nullptr, 0, nullptr);
-  for (int d = 0; d < D; ++d) bx[d] = mean[d];
+__device__ __forceinline__ float ik_mppi(const IKRobot& rb, const IKWorld& w, float* st,
+                                      const float* goal, float& x, const IKSolveCfg& cfg,
+                                      const float* noise, int n, int N) {
+  const int D = rb.D, lane = ik_lane();
+  const bool act = lane < D;
+  float gdummy;
+  float mean = ik_clip(rb, x);
+  float bc = ik_eval(rb, w, st, goal, mean, gdummy, 0, nullptr);
+  float bx = mean;
   float std_ = cfg.init_std;
   const float T = cfg.temperature;
   for (int it = 0; it < cfg.mppi_iters; ++it) {
-    float m = 1.0e30f, den = 0.0f;
-    for (int d = 0; d < D; ++d) num[d] = 0.0f;
+    float m = 1.0e30f, den = 0.0f, num = 0.0f;
     for (int pi = 0; pi < cfg.n_particles; ++pi) {
-      if (noise != nullptr) {
-        const float* np_ = noise + (((size_t)it * cfg.n_particles + pi) * N + sc.n) * D;
-        for (int d = 0; d < D; ++d) eps[d] = np_[d];
-      } else {
-        ik_normals(cfg.seed_lo, cfg.seed_hi, sc.n, it, pi, D, eps);
+      float xp = mean;
+      if (pi != 0) {
+        float eps = 0.0f;
+        if (act) {
+          eps = (noise != nullptr)
+                    ? noise[(((size_t)it * cfg.n_particles + pi) * N + n) * D + lane]
+                    : ik_normal(cfg.seed_lo, cfg.seed_hi, n, it, pi, lane);
+        }
+        xp = ik_clip(rb, mean + std_ * eps);
       }
-      if (pi == 0) {
-        for (int d = 0; d < D; ++d) xp[d] = mean[d];
-      } else {
-        for (int d = 0; d < D; ++d) xp[d] = mean[d] + std_ * eps[d];
-        ik_clip(rb, xp);
-      }
-      float cp = ik_eval(rb, w, sc, goal, xp, nullptr, 0, nullptr);
-      float m_new = fminf(m, cp);
-      float scale = expf((m_new - m) / T);
-      float wgt = expf((m_new - cp) / T);
-      for (int d = 0; d < D; ++d) num[d] = num[d] * scale + wgt * xp[d];
+      const float cp = ik_eval(rb, w, st, goal, xp, gdummy, 0, nullptr);
+      const float m_new = fminf(m, cp);
+      const float scale = expf((m_new - m) / T);
+      const float wgt = expf((m_new - cp) / T);
+      num = num * scale + wgt * xp;
       den = den * scale + wgt;
-      if (cp < bc) {
-        bc = cp;
-        for (int d = 0; d < D; ++d) bx[d] = xp[d];
-      }
+      if (cp < bc) { bc = cp; bx = xp; }
       m = m_new;
     }
-    float dsafe = fmaxf(den, 1e-12f);
-    for (int d = 0; d < D; ++d) mean[d] = mean[d] + cfg.step_size * (num[d] / dsafe - mean[d]);
-    ik_clip(rb, mean);
+    const float dsafe = fmaxf(den, 1e-12f);
+    mean = ik_clip(rb, mean + cfg.step_size * (num / dsafe - mean));
     std_ = fmaxf(std_ * cfg.std_decay, cfg.min_std);
   }
-  float cm = ik_eval(rb, w, sc, goal, mean, nullptr, 0, nullptr);
-  if (cm < bc) {
-    bc = cm;
-    for (int d = 0; d < D; ++d) bx[d] = mean[d];
-  }
-  for (int d = 0; d < D; ++d) x[d] = bx[d];
+  const float cm = ik_eval(rb, w, st, goal, mean, gdummy, 0, nullptr);
+  if (cm < bc) { bc = cm; bx = mean; }
+  x = bx;
   return bc;
 }

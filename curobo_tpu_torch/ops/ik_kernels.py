@@ -15,12 +15,16 @@ for the five Pallas call sites of that module:
 What bounds them on an H100: operations, not bytes. A configuration reads and
 writes a few hundred bytes and costs about 1e4 float operations per objective
 evaluation, and a solve evaluates it hundreds of times in a serial chain. The
-design gives one thread to each configuration, 32-thread blocks so that a few
-thousand configurations spread over all SMs, robot and world as runtime tables
-(nothing is compiled per robot or per world: a world update is a tensor
-update), and per-thread state in a caller-allocated scratch buffer laid out
-[block][slot][lane]. At the main path's 3200 configurations the card is mostly
-idle; a warp per configuration is work for later.
+design gives one warp to each configuration (4 warps per block): the block
+copies the robot and world tables into shared memory once (a world too large
+for it is compacted into a global buffer once per launch and read there),
+each warp keeps its evaluation state and its L-BFGS history there, lane d holds
+dof d of every optimizer vector, and an evaluation's spheres, pairs and links
+are split over the 32 lanes. Robot and world stay runtime tables (nothing is
+compiled per robot or per world: a world update is a tensor update). The host
+builds the lists the lanes walk in a fixed order (`IKTables.sph_pair_*`,
+`link_sph*`), so there are no atomics and a launch gives the same bits every
+time.
 
 Beside each kernel stands its plain PyTorch version (`ik_cost_grad_plain`,
 `ik_solve_plain`), taking the same arguments. A wrapper takes the plain
@@ -180,6 +184,11 @@ class IKTables:
     sph_link: torch.Tensor  # (S,) int32
     pair_i: torch.Tensor  # (P, 2) int32, live pairs only
     pair_m: torch.Tensor  # (P,)
+    sph_pair_off: torch.Tensor  # (S + 1,) int32: sphere s's pairs, both directions
+    sph_pair_j: torch.Tensor  # (2 P,) int32 partner sphere, in pair order
+    sph_pair_m: torch.Tensor  # (2 P,) margin
+    link_sph_off: torch.Tensor  # (L + 1,) int32: link l's live spheres
+    link_sph: torch.Tensor  # (live spheres,) int32, ascending within a link
     dof_f: torch.Tensor  # (D, 6)
     cfg_f: torch.Tensor  # (8,)
     tool: int
@@ -207,6 +216,34 @@ class IKTables:
     @property
     def device(self) -> torch.device:
         return self.link_f.device
+
+
+def sphere_pair_lists(S: int, pair_i: np.ndarray, pair_m: np.ndarray):
+    """Per sphere, its live self-collision pairs in both directions, in pair
+    order: (offsets (S + 1,), partner (2 P,), margin (2 P,)). The lane that
+    owns sphere s walks entries [off[s], off[s + 1]) and adds the pair's hinge
+    cost only where s is the lower index, so every pair costs once and every
+    sphere's cotangent is summed in one place."""
+    P = pair_i.shape[0]
+    src = np.concatenate([pair_i[:, 0], pair_i[:, 1]]).astype(np.int64)
+    dst = np.concatenate([pair_i[:, 1], pair_i[:, 0]])
+    k = np.concatenate([np.arange(P), np.arange(P)])
+    order = np.lexsort((k, src))
+    off = np.zeros(S + 1, np.int32)
+    np.cumsum(np.bincount(src, minlength=S), out=off[1:])
+    margin = np.concatenate([pair_m, pair_m])
+    return off, dst[order].astype(np.int32), margin[order].astype(np.float32)
+
+
+def link_sphere_lists(L: int, sph_link: np.ndarray, radii: np.ndarray):
+    """Per link, its live spheres (radius >= 0) in ascending order:
+    (offsets (L + 1,), sphere indices). The lane that owns link l sums the
+    cotangents of entries [off[l], off[l + 1]) into its force and torque."""
+    live = np.nonzero(radii >= 0)[0]
+    order = live[np.argsort(sph_link[live], kind="stable")]
+    off = np.zeros(L + 1, np.int32)
+    np.cumsum(np.bincount(sph_link[live], minlength=L), out=off[1:])
+    return off, order.astype(np.int32)
 
 
 def build_ik_tables(
@@ -242,6 +279,8 @@ def build_ik_tables(
     live = np.isfinite(mg)
     pair_i = np.stack([pa[live], pb[live]], axis=1).astype(np.int32).reshape(-1, 2)
     pair_m = mg[live]
+    sp_off, sp_j, sp_m = sphere_pair_lists(len(sph_link), pair_i, pair_m)
+    ls_off, ls = link_sphere_lists(link_i.shape[0], sph_link, radii)
     clip_lo, clip_hi = params.dof_clip_bounds()
     lim = params.joint_limits
     dof_f = np.stack(
@@ -268,7 +307,8 @@ def build_ik_tables(
 
     return IKTables(
         link_i=t(link_i), link_f=t(link_f), sph_f=t(sph_f), sph_link=t(sph_link),
-        pair_i=t(pair_i), pair_m=t(pair_m), dof_f=t(dof_f), cfg_f=t(cfg_f),
+        pair_i=t(pair_i), pair_m=t(pair_m), sph_pair_off=t(sp_off), sph_pair_j=t(sp_j),
+        sph_pair_m=t(sp_m), link_sph_off=t(ls_off), link_sph=t(ls), dof_f=t(dof_f), cfg_f=t(cfg_f),
         tool=int(params.tool_frame_idx[0]),
         link_host=tuple(tuple(int(v) for v in row) for row in link_i),
         cfg_host=tuple(float(v) for v in cfg_f),
@@ -703,10 +743,11 @@ class _CRobot(ctypes.Structure):
     _fields_ = [
         ("link_i", ctypes.c_void_p), ("link_f", ctypes.c_void_p),
         ("sph_f", ctypes.c_void_p), ("sph_link", ctypes.c_void_p),
-        ("pair_i", ctypes.c_void_p), ("pair_m", ctypes.c_void_p),
+        ("pair_off", ctypes.c_void_p), ("pair_j", ctypes.c_void_p), ("pair_m", ctypes.c_void_p),
+        ("lsph_off", ctypes.c_void_p), ("lsph", ctypes.c_void_p),
         ("dof_f", ctypes.c_void_p), ("cfg_f", ctypes.c_void_p),
         ("L", ctypes.c_int), ("S", ctypes.c_int), ("P", ctypes.c_int),
-        ("D", ctypes.c_int), ("tool", ctypes.c_int),
+        ("D", ctypes.c_int), ("n_lsph", ctypes.c_int), ("tool", ctypes.c_int),
     ]
 
 
@@ -746,13 +787,13 @@ def _lib():
         vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
         lib.ik_max_dof.argtypes = []
         lib.ik_max_dof.restype = ci
-        lib.ik_block_size.argtypes = []
-        lib.ik_block_size.restype = ci
-        lib.ik_scratch_slots.argtypes = [ci, ci, ci, ci]
-        lib.ik_scratch_slots.restype = ci
-        lib.ik_cost_grad_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.ik_cost_grad_scratch_words.argtypes = [vp, vp]
+        lib.ik_cost_grad_scratch_words.restype = ci
+        lib.ik_solve_scratch_words.argtypes = [vp, vp, vp]
+        lib.ik_solve_scratch_words.restype = ci
+        lib.ik_cost_grad_launch.argtypes = [vp] * 7 + [ci, ci, vp]
         lib.ik_cost_grad_launch.restype = ci
-        lib.ik_solve_launch.argtypes = [vp] * 12 + [ci, ci, vp]
+        lib.ik_solve_launch.argtypes = [vp] * 12 + [ci, vp]
         lib.ik_solve_launch.restype = ci
         lib.ik_philox_normal_launch.argtypes = [cu, cu, ci, ci, ci, ci, vp, vp]
         lib.ik_philox_normal_launch.restype = ci
@@ -783,9 +824,10 @@ def _check_inputs(tab: IKTables, world_tabs, goal7: torch.Tensor, q: torch.Tenso
 def _c_robot(tab: IKTables) -> _CRobot:
     return _CRobot(
         tab.link_i.data_ptr(), tab.link_f.data_ptr(), tab.sph_f.data_ptr(),
-        tab.sph_link.data_ptr(), tab.pair_i.data_ptr(), tab.pair_m.data_ptr(),
+        tab.sph_link.data_ptr(), tab.sph_pair_off.data_ptr(), tab.sph_pair_j.data_ptr(),
+        tab.sph_pair_m.data_ptr(), tab.link_sph_off.data_ptr(), tab.link_sph.data_ptr(),
         tab.dof_f.data_ptr(), tab.cfg_f.data_ptr(),
-        tab.L, tab.S, tab.P, tab.D, tab.tool,
+        tab.L, tab.S, tab.P, tab.D, tab.link_sph.shape[0], tab.tool,
     )
 
 
@@ -797,19 +839,20 @@ def _c_world(world_tabs) -> _CWorld:
     )
 
 
-def _scratch(lib, tab: IKTables, N: int, H: int, device):
-    """Scratch of the launch, [block][slot][lane], and its slots per thread."""
-    block = lib.ik_block_size()
-    n_threads = ((N + block - 1) // block) * block
-    slots = lib.ik_scratch_slots(tab.L, tab.S, tab.D, H)
-    return torch.empty((slots * n_threads,), dtype=torch.float32, device=device), slots
+def _scratch(words: int, device):
+    """A launch's global buffer, where the kernel says (by its words) that a
+    world or a trajectory's step state does not fit in shared memory; None
+    when everything fits."""
+    if words == 0:
+        return None
+    return torch.empty((words,), dtype=torch.float32, device=device)
 
 
 def _cuda_guard(tab: IKTables, lib):
     if tab.D > lib.ik_max_dof():
         raise NotImplementedError(
-            f"IK kernels keep at most {lib.ik_max_dof()} degrees of freedom per "
-            f"thread; this robot has {tab.D}"
+            f"IK kernels give each degree of freedom a lane and take at most "
+            f"{lib.ik_max_dof()}; this robot has {tab.D}"
         )
 
 
@@ -830,12 +873,14 @@ def ik_cost_grad(
     cost = torch.empty((N,), dtype=torch.float32, device=q.device)
     grad = torch.empty((N, tab.D), dtype=torch.float32, device=q.device) if want_grad else None
     with torch.cuda.device(q.device):
-        scratch, slots = _scratch(lib, tab, N, 0, q.device)
         rb, w = _c_robot(tab), _c_world(world_tabs)
+        rbp, wp = ctypes.addressof(rb), ctypes.addressof(w)
+        scratch = _scratch(lib.ik_cost_grad_scratch_words(rbp, wp), q.device)
         err = lib.ik_cost_grad_launch(
-            ctypes.addressof(rb), ctypes.addressof(w), goal7.data_ptr(), q.data_ptr(),
-            cost.data_ptr(), grad.data_ptr() if want_grad else None, scratch.data_ptr(),
-            slots, N, int(want_grad), torch.cuda.current_stream().cuda_stream,
+            rbp, wp, goal7.data_ptr(), q.data_ptr(),
+            cost.data_ptr(), grad.data_ptr() if want_grad else None,
+            None if scratch is None else scratch.data_ptr(), N, int(want_grad),
+            torch.cuda.current_stream().cuda_stream,
         )
     ik_cost_grad.launches += 1
     if err != 0:
@@ -898,14 +943,15 @@ def ik_solve(
         s_lo, s_hi,
     )
     with torch.cuda.device(dev):
-        scratch, slots = _scratch(lib, tab, N, max(b.history, b.warmup_history), dev)
         rb, w = _c_robot(tab), _c_world(world_tabs)
+        rbp, wp, cfgp = ctypes.addressof(rb), ctypes.addressof(w), ctypes.addressof(cfg)
+        scratch = _scratch(lib.ik_solve_scratch_words(rbp, wp, cfgp), dev)
         err = lib.ik_solve_launch(
-            ctypes.addressof(rb), ctypes.addressof(w), ctypes.addressof(cfg),
-            goal7.data_ptr(), x0.data_ptr(),
+            rbp, wp, cfgp, goal7.data_ptr(), x0.data_ptr(),
             noise.data_ptr() if noise is not None else None,
-            x.data_ptr(), *(o.data_ptr() for o in outs), scratch.data_ptr(),
-            slots, N, torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), *(o.data_ptr() for o in outs),
+            None if scratch is None else scratch.data_ptr(), N,
+            torch.cuda.current_stream().cuda_stream,
         )
     ik_solve.launches += 1
     if err != 0:

@@ -19,12 +19,13 @@ What bounds them on an H100: operations, not bytes. A trajectory reads and
 writes a few hundred bytes; one evaluation costs H steps x (FK, 694 pairs, 61
 spheres x K sweep samples x obstacles), about 1e7 float operations, and a solve
 runs a few hundred evaluations in a serial chain. The TPU kernel lays the
-horizon on the lane axis; here one block takes a trajectory and one thread a
-step (a warp at H = 32), so every step of a trajectory is evaluated at once,
-and per-trajectory sums are block reductions. Optimizer state is one copy per
-trajectory in shared memory. The motion planner launches 4 or 8 trajectories,
-so a launch fills only 4 or 8 SMs; spreading a step's pairs and spheres over
-more threads is work for later.
+horizon on the lane axis; here one block of 16 warps takes a trajectory and
+one warp a step at a time, its lanes splitting the step's pairs, spheres and
+links (the evaluation of the IK kernels). Tables and every step's state live
+in shared memory (in a global scratch buffer where a long horizon's state or a
+very large world does not fit), and the optimizer's vector work runs on one
+warp. The motion planner launches 4 or 8 trajectories, so a launch fills 4 or
+8 SMs.
 
 Beside each kernel stands its plain PyTorch version (`traj_cost_grad_plain`,
 `traj_solve_plain`), taking the same arguments. A wrapper takes the plain
@@ -48,6 +49,7 @@ from curobo_tpu_torch.transition.bspline import N_PIN, BSplineConfig, _basis_mat
 
 BIG = 1.0e6
 MAX_HORIZON = 128  # TRAJ_MAX_H in ops/csrc/traj_kernels.cu
+MAX_HISTORY = 32  # most L-BFGS history slots of traj_solve
 _LIB_NAME = "traj_kernels"
 _MODES = {"cost": 0, "grad": 1, "metrics": 4}
 
@@ -416,13 +418,13 @@ def _lib():
 
         lib = load_library(_LIB_NAME)
         vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        for name in ("traj_max_horizon", "traj_max_history"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ci
-        lib.traj_threads.argtypes = [ci]
-        lib.traj_threads.restype = ci
-        lib.traj_scratch_floats_per_thread.argtypes = [ci, ci]
-        lib.traj_scratch_floats_per_thread.restype = ci
+        lib.traj_max_horizon.argtypes = []
+        lib.traj_max_horizon.restype = ci
+        cll = ctypes.c_longlong
+        lib.traj_cost_grad_scratch_words.argtypes = [vp, vp, vp, ci]
+        lib.traj_cost_grad_scratch_words.restype = cll
+        lib.traj_solve_scratch_words.argtypes = [vp, vp, vp, ci, ci]
+        lib.traj_solve_scratch_words.restype = cll
         lib.traj_cost_grad_launch.argtypes = [vp] * 15 + [ci, ci, vp]
         lib.traj_cost_grad_launch.restype = ci
         lib.traj_solve_launch.argtypes = [vp] * 18 + [ci, vp]
@@ -477,11 +479,6 @@ def _c_traj(tt: TrajTables) -> _CTrajCfg:
     )
 
 
-def _scratch(lib, tt: TrajTables, NP: int, device):
-    per_thread = lib.traj_scratch_floats_per_thread(tt.ik.L, tt.ik.S)
-    return torch.empty((NP * lib.traj_threads(tt.H) * per_thread,), dtype=torch.float32, device=device)
-
-
 def _contig(*ts):
     return tuple(None if t is None else t.contiguous() for t in ts)
 
@@ -506,14 +503,15 @@ def traj_cost_grad(tt: TrajTables, world_tabs, goal7, x, q_start, q_end, dt, mod
     outs = [torch.empty((NP,), dtype=torch.float32, device=dev) for _ in range(5)]
     grad = torch.empty((NP, tt.nfD), dtype=torch.float32, device=dev) if mode == "grad" else None
     with torch.cuda.device(dev):
-        scratch = _scratch(lib, tt, NP, dev)
         rb, w, tc = ikk._c_robot(tt.ik), ikk._c_world(world_tabs), _c_traj(tt)
+        rbp, wp, tcp = ctypes.addressof(rb), ctypes.addressof(w), ctypes.addressof(tc)
+        scratch = ikk._scratch(lib.traj_cost_grad_scratch_words(rbp, wp, tcp, NP), dev)
         err = lib.traj_cost_grad_launch(
-            ctypes.addressof(rb), ctypes.addressof(w), ctypes.addressof(tc),
+            rbp, wp, tcp,
             goal7.data_ptr(), x.data_ptr(), q_start.data_ptr(), q_end.data_ptr(), dt.data_ptr(),
             outs[0].data_ptr(), None if grad is None else grad.data_ptr(),
-            *(o.data_ptr() for o in outs[1:]), scratch.data_ptr(), NP, _MODES[mode],
-            torch.cuda.current_stream().cuda_stream,
+            *(o.data_ptr() for o in outs[1:]), None if scratch is None else scratch.data_ptr(),
+            NP, _MODES[mode], torch.cuda.current_stream().cuda_stream,
         )
     traj_cost_grad.launches += 1
     if err != 0:
@@ -526,9 +524,9 @@ def traj_cost_grad(tt: TrajTables, world_tabs, goal7, x, q_start, q_end, dt, mod
 traj_cost_grad.launches = 0
 
 
-def _check_budget(b: TrajSolveBudget, max_history: int = 32):
-    if not 1 <= b.history <= max_history:
-        raise ValueError(f"L-BFGS history must be in [1, {max_history}], got {b.history}")
+def _check_budget(b: TrajSolveBudget):
+    if not 1 <= b.history <= MAX_HISTORY:
+        raise ValueError(f"L-BFGS history must be in [1, {MAX_HISTORY}], got {b.history}")
     if min(b.mppi_iters, b.lbfgs_iters, b.n_linesearch) < 0:
         raise ValueError("stage budgets must be >= 0")
     if b.mppi_iters > 0 and b.n_particles < 1:
@@ -570,7 +568,6 @@ def traj_solve(
     if dev.type == "cpu":
         return traj_solve_plain(tt, world_tabs, goal7, x0, q_start, q_end, dt, b, seed, noise, eps_smooth)
     lib = _cuda_guard(tt)
-    _check_budget(b, lib.traj_max_history())
     if q_end is None:
         q_end = q_start
     goal7, x0, q_start, q_end, dt, noise, eps_smooth = _contig(
@@ -586,14 +583,16 @@ def traj_solve(
         b.ls_ratio, s_lo, s_hi,
     )
     with torch.cuda.device(dev):
-        scratch = _scratch(lib, tt, NP, dev)
         rb, w, tc = ikk._c_robot(tt.ik), ikk._c_world(world_tabs), _c_traj(tt)
+        rbp, wp, tcp = ctypes.addressof(rb), ctypes.addressof(w), ctypes.addressof(tc)
+        scratch = ikk._scratch(lib.traj_solve_scratch_words(rbp, wp, tcp, b.history, NP), dev)
         err = lib.traj_solve_launch(
-            ctypes.addressof(rb), ctypes.addressof(w), ctypes.addressof(tc), ctypes.addressof(cfg),
+            rbp, wp, tcp, ctypes.addressof(cfg),
             goal7.data_ptr(), x0.data_ptr(), q_start.data_ptr(), q_end.data_ptr(), dt.data_ptr(),
             None if noise is None else noise.data_ptr(),
             None if eps_smooth is None else eps_smooth.data_ptr(),
-            x.data_ptr(), *(o.data_ptr() for o in outs), scratch.data_ptr(), NP,
+            x.data_ptr(), *(o.data_ptr() for o in outs),
+            None if scratch is None else scratch.data_ptr(), NP,
             torch.cuda.current_stream().cuda_stream,
         )
     traj_solve.launches += 1

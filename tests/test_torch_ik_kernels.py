@@ -134,6 +134,120 @@ def test_robot_tables_fold_constant_links():
     assert int((tab.sph_f[:, 3] >= 0).sum()) == 61
 
 
+# ---------------------------------------------------------------------------
+# What the warp kernels read from the host: per-sphere pair lists, per-link
+# sphere lists, and the world rows as the kernels compact them
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def franka_tables():
+    kt = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"), device="cpu")
+    return kt, ikk.build_ik_tables(kt.params, ct.IKConfig().rollout)
+
+
+def test_sphere_pair_lists_hold_each_live_pair_once_per_end(franka_tables):
+    _, tab = franka_tables
+    off, pj, pm = tab.sph_pair_off.numpy(), tab.sph_pair_j.numpy(), tab.sph_pair_m.numpy()
+    pairs = {(int(a), int(b)): (k, float(m))
+             for k, ((a, b), m) in enumerate(zip(tab.pair_i.numpy(), tab.pair_m.numpy()))}
+    assert len(pairs) == tab.P and off[0] == 0 and off[-1] == 2 * tab.P
+    low, high = {}, {}
+    for s in range(tab.S):
+        keys = [(min(s, int(t)), max(s, int(t))) for t in pj[off[s]:off[s + 1]]]
+        idx = [pairs[key][0] for key in keys]
+        assert idx == sorted(idx)  # in pair order
+        for key, t, m in zip(keys, pj[off[s]:off[s + 1]], pm[off[s]:off[s + 1]]):
+            assert pairs[key][1] == float(m)
+            # the hinge cost is counted at the lower-index end only
+            side = low if s < t else high
+            side[key] = side.get(key, 0) + 1
+    assert low == {k: 1 for k in pairs} and high == {k: 1 for k in pairs}
+
+
+def test_link_sphere_lists_partition_the_live_spheres(franka_tables):
+    _, tab = franka_tables
+    off, ls = tab.link_sph_off.numpy(), tab.link_sph.numpy()
+    live = np.nonzero(tab.sph_f[:, 3].numpy() >= 0)[0]
+    assert sorted(ls.tolist()) == live.tolist() and off[-1] == len(live)
+    links = tab.sph_link.numpy()
+    for l in range(tab.L):
+        seg = ls[off[l]:off[l + 1]]
+        assert np.all(links[seg] == l) and np.all(np.diff(seg) > 0)
+
+
+def test_pair_lists_reproduce_the_self_collision_cost_and_cotangents(franka_tables):
+    """A vectorised index_add over the per-sphere lists (what the lanes sum)
+    against autograd of the pair hinge as `ik_cost_grad_plain` computes it."""
+    kt, tab = franka_tables
+    _, _, _, _, sc_w, sc_act, _, _ = tab.cfg_host
+    rng = np.random.RandomState(5)
+    q = torch.as_tensor(rng.uniform(-2.0, 2.0, (64, 7)).astype(np.float32))
+    R, p = ikk._fk_plain(tab, q)
+    sl = tab.sph_link.long()
+    centres = ((R[:, sl] @ tab.sph_f[:, 0:3, None])[..., 0] + p[:, sl]).detach().requires_grad_(True)
+    dd = centres[:, tab.pair_i[:, 0].long()] - centres[:, tab.pair_i[:, 1].long()]
+    dist = torch.sqrt((dd * dd).sum(dim=-1) + 1e-12)
+    cost = sc_w * (tab.pair_m + sc_act - dist).clamp_min(0.0).sum(dim=-1)
+    (g_ref,) = torch.autograd.grad(cost.sum(), centres)
+    c_ref = cost.detach()
+    assert float(c_ref.min()) == 0.0 and float(c_ref.max()) > 0.0  # both hinge branches occur
+
+    c = centres.detach()
+    off = tab.sph_pair_off.long()
+    src = torch.repeat_interleave(torch.arange(tab.S), off[1:] - off[:-1])
+    dst = tab.sph_pair_j.long()
+    dd = c[:, src] - c[:, dst]
+    dist = torch.sqrt((dd * dd).sum(dim=-1) + 1e-12)
+    h = tab.sph_pair_m + sc_act - dist
+    active = (h > 0).to(c.dtype)
+    cost_l = sc_w * (h.clamp_min(0.0) * (src < dst).to(c.dtype)).sum(dim=-1)
+    cot = (active * (-sc_w / dist))[..., None] * dd
+    g_l = torch.zeros_like(c).index_add_(1, src, cot)
+    np.testing.assert_allclose(cost_l.numpy(), c_ref.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(g_l.numpy(), g_ref.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_compacted_world_rows_keep_the_first_strict_minimum():
+    """The kernels copy a table's enabled rows into shared memory in table
+    order (a ballot and prefix count per 32 rows) and scan them with a strict
+    `<`. Scanning the compacted rows must pick the same row as scanning the
+    full table with disabled rows at 1e6, ties included."""
+    rng = np.random.RandomState(6)
+    K = 40
+    cub = np.zeros((K, 16), np.float32)
+    cub[:, 0:9] = np.eye(3, dtype=np.float32).reshape(9)
+    cub[:, 9:12] = rng.uniform(-0.5, 0.5, (K, 3))
+    cub[:, 12:15] = rng.uniform(0.05, 0.2, (K, 3))
+    cub[:, 15] = (rng.uniform(size=K) < 0.4).astype(np.float32)
+    cub[[3, 11, 33]] = cub[5]  # exact duplicates: ties between rows
+    cub[[3, 5, 11, 33], 15] = [1.0, 0.0, 1.0, 1.0]
+    empty = [np.zeros((1, w), np.float32) for w in (5, 8, 15)]
+    pts = torch.as_tensor(rng.uniform(-0.7, 0.7, (500, 3)).astype(np.float32))
+    per_row = torch.stack([
+        ikk._scene_msdf_plain(tuple(torch.as_tensor(t) for t in [cub[r:r + 1]] + empty), pts)
+        for r in range(K)
+    ], dim=-1)  # (points, K); a disabled row gives 1e6
+
+    def first_strict_min(d, rows):
+        best = torch.full(d.shape[:1], ikk.BIG)
+        arg = torch.full(d.shape[:1], -1, dtype=torch.long)
+        for r in rows:
+            better = d[:, r] < best
+            best = torch.where(better, d[:, r], best)
+            arg = torch.where(better, torch.full_like(arg, r), arg)
+        return best, arg
+
+    enabled = np.nonzero(cub[:, 15] > 0.5)[0]
+    compacted = cub[enabled]  # the kernels' shared copy
+    assert np.array_equal(compacted, np.concatenate([cub[r:r + 1] for r in range(K) if cub[r, 15] > 0.5]))
+    full_min, full_arg = first_strict_min(per_row, range(K))
+    comp_min, comp_arg = first_strict_min(per_row[:, enabled], range(len(enabled)))
+    assert torch.equal(full_min, comp_min)
+    assert torch.equal(full_arg, torch.as_tensor(enabled)[comp_arg])
+    assert bool((full_arg == 3).any())  # a tie went to the earliest enabled duplicate
+    full = ikk._scene_msdf_plain(tuple(torch.as_tensor(t) for t in [cub] + empty), pts)
+    assert torch.equal(full, full_min)
+
+
 @pytest.fixture(scope="module")
 def ur10e_case():
     from curobo_tpu.ops.pallas_ik import BLK, LANE, SUB, PallasIKCost, pack_world_arrays

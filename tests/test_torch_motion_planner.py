@@ -208,7 +208,11 @@ def test_batch_planner_buckets_and_concatenates(franka, suite):
     start = ct.JointState.from_position(torch.tensor([p["q_start"] for p in probs]), kt.joint_names)
     res = bp.plan_pose(world, goals, start)
     assert res.success.shape == (3,) and res.trajectory.position.shape == (3, 234, 7)
-    assert res.solver_trajectory.position.shape == (3, 32, 7)
+    # every JointState is padded to the longest interpolated horizon, as the
+    # JAX package's BatchMotionPlanner does, holding the last solver state
+    assert res.solver_trajectory.position.shape == (3, 234, 7)
+    tail = res.solver_trajectory.position[:, 31:]
+    assert torch.equal(tail, res.solver_trajectory.position[:, 31:32].expand_as(tail))
     np.testing.assert_allclose(res.solver_trajectory.position[:, 0].numpy(),
                                start.position.numpy(), atol=1e-5)
     assert torch.isfinite(res.trajectory.position).all()
