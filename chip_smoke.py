@@ -17,10 +17,16 @@ the public entry points and checks the results: collision-free IK
 phase `solve`) and motion generation (`MotionPlanner.plan_pose` over the 90
 problems of `content/problems/franka_motion.json`, phase `plan`), times the
 kernels at the paths' shapes, and traces two plans with `torch.profiler`
-(phase `profile`). The trace and the compiler's `-Xptxas -v` logs are written
-to `chiprun_out/`. Every line of output is one JSON object, except the line
-with the card's name and power limit. Exits non-zero on the first failed
-phase, and when there is no CUDA device.
+(phase `profile`). It holds `traj_solve` at MPC's shape against its plain
+version (phase `compare_mpc_kernel`), drives MPC through `MPCSolver.run_ticks`
+and `step` on the reference bench's 50-tick episode and a tracking episode
+(phase `mpc`: one `traj_solve` launch a tick, tick time, busy share, feasible
+rate), and runs the generic route on the card: goal-set IK and `plan_cspace`
+(phase `generic`, gated by the JAX package's CPU result on the same problems).
+The traces and the compiler's `-Xptxas -v` logs are written to
+`chiprun_out/`. Every line of output is one JSON object, except the line with
+the card's name and power limit. Exits non-zero on the first failed phase, and
+when there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -84,8 +90,36 @@ COST_MED, COST_P99 = 1e-4, 1e-2
 LOOP_COST_MED, LOOP_X_FRAC, LOOP_X_TOL = 1e-3, 0.95, 1e-3
 
 
+# every line emit() prints also goes to chiprun_out/chip_smoke.jsonl: the
+# output is longer than what a remote run returns of it
+LOG_LINES = []
+# the agreement numbers that `compare_summary` repeats near the end, per case
+BRIEF_KEYS = dict(cost_rel_median="c_med", cost_rel_p99="c_p99", grad_rel_median="g_med",
+                  grad_rel_p99="g_p99", x_agree_frac="x_ok", feasible_agree_frac="feas_ok",
+                  conv_frac_kernel="conv_k", conv_frac_plain="conv_p")
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    LOG_LINES.append(line)
+    print(line, flush=True)
+
+
+def brief_cases(obj, out):
+    """Every comparison case inside obj (a dict labelled by `case` or
+    `world`), with its agreement numbers to four significant digits."""
+    if isinstance(obj, dict):
+        label = obj.get("case", obj.get("world"))
+        if isinstance(label, str):
+            out.append(dict(case=label, **{b: float(f"{obj[k]:.4g}")
+                                           for k, b in BRIEF_KEYS.items() if k in obj}))
+        for v in obj.values():
+            if isinstance(v, (dict, list)):
+                brief_cases(v, out)
+    elif isinstance(obj, list):
+        for v in obj:
+            brief_cases(v, out)
+    return out
 
 
 def fail(msg):
@@ -664,25 +698,32 @@ def profile_plans(planner, kin, suite, out_dir):
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "plan_trace.json")
     prof.export_chrome_trace(path)
+    out = dict(phase="profile", plans=len(inputs), attempts=attempts, trace=path)
+    out.update(trace_busy(path, "plan_", len(inputs)))
+    return out
+
+
+def trace_busy(path, prefix, n_windows):
+    """Device busy share of the host windows named `prefix*` in a chrome trace
+    of `torch.profiler`: device kernel and copy time inside the windows over
+    their length, kernel time by name and the longest idle gaps."""
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
     dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                  if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     wins = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                   if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-                  and str(e.get("name", "")).startswith("plan_"))
-    out = dict(phase="profile", plans=len(inputs), attempts=attempts, trace=path,
-               device_events=len(dev))
-    if not dev or len(wins) != len(inputs):
-        # no device time in the trace: the CUDA-event count of the plan phase
-        # (kernel_ms_per_first_attempt against the median plan) stands instead
-        out["note"] = "the profiler recorded no device time; see the plan phase's CUDA-event count"
+                  and str(e.get("name", "")).startswith(prefix))
+    out = dict(device_events=len(dev))
+    if not dev or len(wins) != n_windows:
+        # no device time in the trace: the CUDA-event counts stand instead
+        out["note"] = "the profiler recorded no device time; see the CUDA-event counts"
         return out
     window = busy = 0.0
     gaps, by_name = [], {}
     for t0, t1 in wins:
         window += t1 - t0
-        prev_end, prev_name = t0, "start of plan"
+        prev_end, prev_name = t0, "start of window"
         for a, b, name in dev:
             if b <= t0 or a >= t1:
                 continue
@@ -695,7 +736,7 @@ def profile_plans(planner, kin, suite, out_dir):
                 busy += b - max(a, prev_end)
                 prev_end, prev_name = b, short
         if t1 > prev_end:
-            gaps.append((t1 - prev_end, prev_name, "end of plan"))
+            gaps.append((t1 - prev_end, prev_name, "end of window"))
     gaps.sort(reverse=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     out.update(window_ms=window / 1e3, device_busy_ms=busy / 1e3, busy_share=busy / window,
@@ -863,18 +904,301 @@ def plan_phase(kin, suite, t_start, deadline_s=780.0):
     return summary, launches, planner
 
 
+# ---------------------------------------------------------------------------
+# MPC (MPCSolver over traj_solve) and the generic route
+# ---------------------------------------------------------------------------
+MPC_TICKS, MPC_REPS = 50, 6
+# Success gates of phase `generic`, fixed before its first run on the card:
+# the JAX package's own CPU result on the same problems
+# (`tests/test_torch_generic_reference.py`: 1.0 for both) less 0.1.
+GENERIC_GATE = dict(ik_goal_set=0.9, plan_cspace=0.9)
+
+
+def mpc_scene():
+    """The reference bench's MPC world (`bench.py:bench_mpc`): a table and a
+    "drone" sphere that moves 4 mm a tick."""
+    return gt.Scene().add(
+        gt.Cuboid(name="table", pose=[0.4, 0.0, -0.1, 1, 0, 0, 0], dims=[1.2, 1.2, 0.2]),
+        gt.SphereObstacle(name="drone", pose=[0.5, 0.4, 0.6, 1, 0, 0, 0], radius=0.08),
+    )
+
+
+def mpc_budget(cfg) -> tk.TrajSolveBudget:
+    """The `traj_solve` budget `MPCSolver` launches with each tick."""
+    mp, lb = cfg.mppi, cfg.lbfgs
+    return tk.TrajSolveBudget(
+        mppi_iters=mp.n_iters if cfg.use_particle_stage else 0, n_particles=mp.n_particles,
+        init_std=mp.init_std, std_decay=mp.std_decay, min_std=mp.min_std,
+        temperature=mp.temperature, step_size=mp.step_size,
+        lbfgs_iters=lb.n_iters if cfg.use_gradient_stage else 0, history=lb.history,
+        max_step=lb.max_step,
+    )
+
+
+def mpc_inputs(kin, cfg, n, gen):
+    """n MPC ticks' trajectory inputs near the bench episode's: start around
+    the retract configuration, goal around FK(retract + 0.3), the held-position
+    warm start with knot noise, dt = control_dt -> (goal7, x, q_start, None, dt)."""
+    D = kin.n_dof
+    q0 = kin.params.retract_config[None].cpu() + 0.05 * torch.randn((n, D), generator=gen)
+    st = kin.compute_kinematics((q0 + 0.3 + 0.05 * torch.randn((n, D), generator=gen)).to(DEV))
+    goal7 = torch.cat([st.tool_pose.position[:, 0], st.tool_pose.quaternion[:, 0]], dim=-1)
+    tr = BSplineTransition(cfg.bspline)
+    x = tr.linear_seed(q0, q0) + 0.02 * torch.randn((n, cfg.bspline.n_free, D), generator=gen)
+    dt = torch.full((n,), cfg.control_dt)
+    return (goal7.contiguous(), x.reshape(n, -1).to(DEV).contiguous(), q0.to(DEV).contiguous(),
+            None, dt.to(DEV))
+
+
+def compare_mpc_kernel(kin, n_traj=64):
+    """`traj_solve` at MPC's shape (spline (3, 10, 24), no pin, MPPI 64 x 2 with
+    the smoothing matrix, L-BFGS history 8) against its plain version on the
+    same injected normals: Franka, the MPC world, 64 trajectories, held to the
+    strict limits of the shallow solves (LOOP_X_FRAC within LOOP_X_TOL, median
+    relative cost error < LOOP_COST_MED) and to equal feasibility, at the full
+    MPC budget and at L-BFGS 4. Then the time at the path's NP = 1 (in-kernel
+    noise)."""
+    cfg = ct.MPCConfig()
+    b = mpc_budget(cfg)
+    tt = tk.build_traj_tables(kin.params, cfg.rollout, cfg.bspline, False, DEV)
+    wt = ikk.pack_world_arrays(ct.compile_scene(mpc_scene(), device=DEV))
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    inputs = mpc_inputs(kin, cfg, n_traj, gen)
+    noise = torch.randn((b.mppi_iters, b.n_particles, n_traj, tt.nfD), generator=gen).to(DEV)
+    L = smooth_sample_transform(tt.n_free, kin.n_dof).to(DEV)
+    label = f"mpc shape, {n_traj} trajectories, injected noise, eps_smooth"
+    res, _ = compare_traj_solve(tt, wt, inputs, b, f"{label}, full budget", noise=noise,
+                                eps_smooth=L)
+    shallow = dataclasses.replace(b, lbfgs_iters=4)
+    res["shallow_lbfgs4"], _ = compare_traj_solve(tt, wt, inputs, shallow,
+                                                  f"{label}, L-BFGS 4", noise=noise, eps_smooth=L)
+    for r in (res, res["shallow_lbfgs4"]):
+        if r["feasible_agree_frac"] != 1.0:
+            fail(f"traj_solve[{r['case']}] differs from its plain version in feasibility: {r}")
+    in1 = tuple(None if t is None else t[:1] for t in inputs)
+    res["ms_np1"] = time_ms(lambda: tk.traj_solve(tt, wt, *in1, b, 3, None, L), reps=20, warm=2)
+    res["plain_ms_np1"] = time_ms(lambda: tk.traj_solve_plain(tt, wt, *in1, b, 3, None, L),
+                                  reps=1, warm=0)
+    f1 = traj_solve_flops(tt, wt, b)
+    # bytes: goal, knots, start and dt in; knots and five metrics out
+    res["bound_ms_np1"], res["bound_by_np1"] = bound_ms(f1, (7 + 2 * tt.nfD + kin.n_dof + 6) * 4)
+    res["sm_floor_ms_np1"] = sm_floor_ms(f1, 1)
+    res["shape"] = (f"NP=1 trajectory, spline (3, 10, 24), D={kin.n_dof}, MPPI "
+                    f"{b.n_particles} x {b.mppi_iters} + eps_smooth, L-BFGS {b.lbfgs_iters} x line "
+                    f"search {b.n_linesearch}, history {b.history}, MPC world")
+    return res
+
+
+def mpc_phase(kin, out_dir):
+    """MPC's main path through the public API: the reference bench's episode
+    (`bench.py:bench_mpc`): Franka, default `MPCConfig()` (= tasks/mpc.yml),
+    B = 1, goal FK(retract + 0.3), `run_ticks` over 50 stacked worlds with the
+    drone moving 4 mm a tick, 6 timed repetitions; a blocking `step`; one
+    `run_ticks` under `torch.profiler`; then the tracking episode of the JAX
+    package's tests (B = 2, 40 `step`s, perfect tracking). Returns (summary,
+    launches of the timed episodes)."""
+    cfg = ct.MPCConfig.from_yaml(ct.content_path("tasks", "mpc.yml"))
+    if cfg != ct.MPCConfig():
+        fail("tasks/mpc.yml does not load to the default MPCConfig()")
+    solver = ct.MPCSolver(kin.params, cfg, device=DEV)
+    world = ct.compile_scene(mpc_scene(), device=DEV)
+    q0 = kin.params.retract_config[None]
+    st = kin.compute_kinematics(q0 + 0.3)
+    goal = solver.make_goal(ct.Pose(st.tool_pose.position[:, 0], st.tool_pose.quaternion[:, 0]))
+    state = solver.setup(q0)
+    js = ct.JointState.from_position(q0, kin.joint_names)
+    if not solver._use_kernel(goal):
+        fail("the MPC bench goal does not take the kernel route")
+    worlds = ct.stack_worlds([world.update_obstacle_pose("drone", [0.5, 0.4 - 0.004 * t, 0.6],
+                                                         [1, 0, 0, 0]) for t in range(MPC_TICKS)])
+    res, _ = solver.run_ticks(worlds, goal, state, js)  # warm-up
+    res.command.position.cpu()
+
+    reset_counts()
+    times, enqueue = [], []
+    for _ in range(MPC_REPS):
+        t0 = time.perf_counter()
+        res, _ = solver.run_ticks(worlds, goal, state, js)
+        t1 = time.perf_counter()
+        res.command.position.cpu()  # the commands on the host end the episode
+        times.append((time.perf_counter() - t0) / MPC_TICKS)
+        enqueue.append((t1 - t0) / MPC_TICKS)
+    launches = counts()
+    want = dict(ik_solve=0, ik_cost_grad=0, traj_solve=MPC_REPS * MPC_TICKS, traj_cost_grad=0)
+    if launches != want:
+        fail(f"MPC episodes launched {launches}, expected {want} (one traj_solve a tick)")
+    for name in ("position", "velocity", "acceleration"):
+        if not torch.isfinite(getattr(res.command, name)).all():
+            fail(f"MPC command {name} has non-finite values")
+    feasible_rate = float(res.feasible.float().mean())
+
+    # a blocking tick: step() and the command on the host
+    res1, state1 = solver.step(world, goal, state, js)
+    res1.command.position.cpu()
+    lat = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        r, _ = solver.step(world, goal, state1, js)
+        r.command.position.cpu()
+        lat.append((time.perf_counter() - t0) * 1e3)
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("mpc_ticks"):
+            r, _ = solver.run_ticks(worlds, goal, state, js)
+            r.command.position.cpu()
+    path = os.path.join(out_dir, "mpc_trace.json")
+    prof.export_chrome_trace(path)
+    busy = trace_busy(path, "mpc_ticks", 1)
+
+    # tracking: B = 2, 40 ticks, perfect tracking (tests/test_solver_mpc.py)
+    qb = kin.params.retract_config[None].expand(2, kin.n_dof)
+    qg = qb + torch.tensor([0.3, 0.1, -0.2, 0.2, 0.1, -0.1, 0.2], device=DEV)
+    stg = kin.compute_kinematics(qg)
+    goal2 = solver.make_goal(ct.Pose(stg.tool_pose.position[:, 0], stg.tool_pose.quaternion[:, 0]))
+    state2, js2 = solver.setup(qb), ct.JointState.from_position(qb, kin.joint_names)
+    errs = []
+    for _ in range(40):
+        r, state2 = solver.step(world, goal2, state2, js2)
+        js2 = ct.JointState(position=r.command.position, velocity=r.command.velocity,
+                            acceleration=r.command.acceleration, joint_names=kin.joint_names)
+        errs.append(r.pos_err.amax())
+    errs = [float(e) for e in errs]
+    if not torch.isfinite(js2.position).all():
+        fail("MPC tracking: non-finite command")
+
+    tick = [t * 1e3 for t in times]
+    summary = dict(
+        phase="mpc", ticks=MPC_TICKS, repetitions=MPC_REPS, batch=1,
+        tick_ms_median=statistics.median(tick), tick_ms_min=min(tick),
+        hz=1e3 / statistics.median(tick), hz_budget=50.0,
+        host_enqueue_ms_per_tick_median=statistics.median(enqueue) * 1e3,
+        feasible_rate=feasible_rate, step_latency_ms_median=statistics.median(lat),
+        step_latency_ms_min=min(lat), traj_solve_launches_per_tick=launches["traj_solve"]
+        / (MPC_REPS * MPC_TICKS), launches=launches, profile=dict(trace=path, **busy),
+        tracking=dict(batch=2, ticks=40, first_pos_err=errs[0], final_pos_err=errs[-1],
+                      pos_err_every_10=errs[::10]),
+    )
+    if feasible_rate < 0.9:
+        fail(f"MPC feasible rate {feasible_rate} is under 0.9: {summary}")
+    if not (errs[-1] < 0.05 and errs[-1] < 0.5 * errs[0]):
+        fail(f"MPC tracking: final pose error {errs[-1]} (first {errs[0]}): {summary}")
+    return summary, launches
+
+
+def goal_set_problems(kin, world, n_goals=32, g=4):
+    """The goal-set IK problems of `tests/test_torch_generic_reference.py`:
+    FK of the first n_goals * g collision-free Halton configurations, as
+    (n_goals, g, 1) poses."""
+    q, ok = ct.RobotSceneCollision(kin.params).sample(world, n_goals * g)
+    if not bool(ok.all()):
+        fail(f"only {int(ok.sum())} of {n_goals * g} collision-free goal configurations found")
+    tp = kin.compute_kinematics(q).tool_pose
+    return ct.Pose(tp.position[:, 0].reshape(n_goals, g, 1, 3).contiguous(),
+                   tp.quaternion[:, 0].reshape(n_goals, g, 1, 4).contiguous())
+
+
+def generic_phase(kin, suite):
+    """The generic route on the card: goal-set IK (32 goals x 4 poses, the
+    default `IKConfig()`, 32 seeds, table world) and `plan_cspace` on every
+    6th problem of the motion suite (the goal is the problem's stored IK
+    solution `q_goal_oracle`), the default `MotionPlanConfig()`. Neither
+    launches a kernel."""
+    world = ct.compile_scene(table_scene(), device=DEV)
+    goals = goal_set_problems(kin, world)
+    solver = ct.IKSolver(kin.params, device=DEV)
+    if solver._use_kernel(ct.Goal.from_pose(goals)):
+        fail("a goal set took the kernel route")
+    res = solver.solve_pose(world, goals)  # warm-up
+    reset_counts()
+    ms = []
+    for i in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = solver.solve_pose(world, goals, seed=i)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    ok = res.success
+    fk = kin.compute_kinematics(res.solution).tool_pose.position[:, 0]
+    near = (fk[:, None] - goals.position[:, :, 0]).norm(dim=-1).amin(dim=1)
+    if bool(ok.any()) and float(near[ok].max()) > 0.005 + 1e-4:
+        fail(f"goal-set IK: a successful solution is {float(near[ok].max())} m from its goals")
+    if not torch.isfinite(res.solution).all():
+        fail("goal-set IK: non-finite solution")
+    ik = dict(goals=int(goals.position.shape[0]), goal_set=int(goals.position.shape[1]),
+              seeds=solver.cfg.n_seeds, success_rate=float(ok.float().mean()),
+              ms_per_solve_median=statistics.median(ms), ms_per_solve_min=min(ms),
+              median_position_error=float(res.position_error.median()))
+
+    planner = ct.MotionPlanner(kin.params, device=DEV)
+    cap = suite["cuboid_capacity"]
+    probs = suite["problems"][::6]
+    rows = []
+    for i, p in enumerate(probs):
+        w = motion_world(p["world"], cap)
+        start = ct.JointState.from_position(torch.tensor([p["q_start"]], device=DEV), kin.joint_names)
+        goal = ct.JointState.from_position(torch.tensor([p["q_goal_oracle"]], device=DEV),
+                                           kin.joint_names)
+        t0 = time.perf_counter()
+        r = planner.plan_cspace(w, goal, start, seed=i)
+        r.trajectory.position.cpu()
+        dt_wall = time.perf_counter() - t0
+        st = r.solver_trajectory
+        for name, t in (("trajectory", r.trajectory.position), ("jerk", st.jerk)):
+            if not torch.isfinite(t).all():
+                fail(f"plan_cspace problem {i}: non-finite {name}")
+        d0 = float((st.position[0, 0] - start.position[0]).abs().max())
+        d1 = float((st.position[0, -1] - goal.position[0]).abs().max())
+        if d0 > 1e-4 or d1 > 1e-4:
+            fail(f"plan_cspace problem {i}: the trajectory misses its ends by {d0}, {d1} rad")
+        rows.append(dict(scenario=p["scenario"], success=bool(r.success[0]),
+                         plan_ms=dt_wall * 1e3, motion_time=float(r.motion_time[0]),
+                         max_jerk=float(st.jerk[0].abs().max())))
+    launches = counts()
+    if any(launches.values()):
+        fail(f"the generic route launched kernels: {launches}")
+    t = np.asarray([r["plan_ms"] for r in rows])
+    okr = [r for r in rows if r["success"]]
+    cs = dict(problems=len(rows), success_rate=len(okr) / len(rows),
+              plan_ms_mean=float(t.mean()), plan_ms_median=float(np.median(t)),
+              plan_ms_p98=float(np.percentile(t, 98)),
+              motion_time_mean_s=float(np.mean([r["motion_time"] for r in okr])) if okr else -1.0,
+              max_jerk_mean=float(np.mean([r["max_jerk"] for r in okr])) if okr else -1.0,
+              per_scenario={s: float(np.mean([r["success"] for r in rows if r["scenario"] == s]))
+                            for s in sorted({r["scenario"] for r in rows})})
+    out = dict(phase="generic", gates=GENERIC_GATE, ik_goal_set=ik, plan_cspace=cs,
+               launches=launches)
+    if ik["success_rate"] < GENERIC_GATE["ik_goal_set"]:
+        fail(f"goal-set IK success {ik['success_rate']} under its gate: {out}")
+    if cs["success_rate"] < GENERIC_GATE["plan_cspace"]:
+        fail(f"plan_cspace success {cs['success_rate']} under its gate: {out}")
+    return out
+
+
 def main():
     quick = "--quick" in sys.argv[1:]
     t_start = time.perf_counter()
     torch.cuda.set_device(DEV)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        run(quick, t_start, out_dir)
+    finally:
+        with open(os.path.join(out_dir, "chip_smoke.jsonl"), "w") as fh:
+            fh.write("".join(l + "\n" for l in LOG_LINES))
+
+
+def run(quick, t_start, out_dir):
     gpu = gpu_line()
-    emit(dict(phase="env", gpu=gpu, torch=torch.__version__, cuda=torch.version.cuda,
-              python=sys.version.split()[0]))
+    env = dict(phase="env", gpu=gpu, torch=torch.__version__, cuda=torch.version.cuda,
+               python=sys.version.split()[0])
+    emit(env)
 
     # ---- build ------------------------------------------------------------
     secs = kbuild.build_all()
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
     for n in secs:
         with open(os.path.join(out_dir, f"build_{n}.log"), "w") as fh:
             fh.write(kbuild.build_log(n))
@@ -957,6 +1281,11 @@ def main():
         rel_median=COST_MED, rel_p99=COST_P99, feasible_agree_frac=0.99,
         loop_cost_rel_median=LOOP_COST_MED, loop_x_agree_frac=LOOP_X_FRAC,
         loop_x_tol=LOOP_X_TOL), **tcmp))
+    mpc_cmp = compare_mpc_kernel(kin)
+    emit(dict(phase="compare_mpc_kernel", limits=dict(
+        loop_cost_rel_median=LOOP_COST_MED, loop_x_agree_frac=LOOP_X_FRAC,
+        loop_x_tol=LOOP_X_TOL), traj_solve=mpc_cmp))
+
     if quick:
         emit(dict(phase="quick", seconds=time.perf_counter() - t_start))
         return
@@ -1087,6 +1416,11 @@ def main():
             fail(f"plan phase did not launch {k}: {plan_launches}")
     emit(profile_plans(planner, kin, suite, out_dir))
 
+    # ---- MPC's main path, then the generic route ------------------------------------
+    mpc, mpc_launches = mpc_phase(kin, out_dir)
+    emit(mpc)
+    emit(generic_phase(kin, suite))
+
     # ---- the kernels line ------------------------------------------------------------
     io_cg = N * (7 + D) * 4 + N * (1 + D) * 4
     io_solve = N * (7 + D) * 4 + N * (D + 4) * 4
@@ -1160,7 +1494,8 @@ def main():
              replaces="curobo_tpu/ops/pallas_traj.py:795",
              launches=plan_launches["traj_solve"],
              # largest |x_kernel - x_plain| (rad) over the strict comparisons
-             max_abs_err=max(c["max_abs_err_x"] for c in tcmp["traj_solve"] + [lh["traj_solve"]]),
+             max_abs_err=max(c["max_abs_err_x"] for c in tcmp["traj_solve"] + [
+                 lh["traj_solve"], mpc_cmp, mpc_cmp["shallow_lbfgs4"]]),
              tolerance=f"strict cases: |dx| < {LOOP_X_TOL} rad on >= {LOOP_X_FRAC} of the "
                        f"trajectories and median relative cost error < {LOOP_COST_MED}; "
                        "trajopt budget: converged share within 0.02 of the plain version's",
@@ -1174,8 +1509,20 @@ def main():
              bound_ms_np8=bound_ms(8 * traj_solve_flops(tt, wt0, traj_b), 8 * io_traj(5 + tt.nfD))[0],
              sm_floor_ms_np8=sm_floor_ms(8 * traj_solve_flops(tt, wt0, traj_b), 8),
              long_horizon_agreement=lh["traj_solve"],
+             launches_mpc_phase=mpc_launches["traj_solve"], mpc_shape=mpc_cmp["shape"],
+             ms_mpc_shape=mpc_cmp["ms_np1"], plain_ms_mpc_shape=mpc_cmp["plain_ms_np1"],
+             bound_ms_mpc_shape=mpc_cmp["bound_ms_np1"], bound_by_mpc_shape=mpc_cmp["bound_by_np1"],
+             sm_floor_ms_mpc_shape=mpc_cmp["sm_floor_ms_np1"],
+             mpc_shape_agreement={k: mpc_cmp[k] for k in (
+                 "cost_rel_median", "x_agree_frac", "feasible_agree_frac", "max_abs_err_x")},
+             mpc_shape_shallow_agreement={k: mpc_cmp["shallow_lbfgs4"][k] for k in (
+                 "cost_rel_median", "x_agree_frac", "feasible_agree_frac", "max_abs_err_x")},
              ptxas=ptxas_of(ptx["traj_kernels"], "traj_solve_kernel")),
     ]
+    emit(dict(phase="compare_summary", env={k: env[k] for k in ("torch", "cuda", "python")},
+              build_seconds=secs, cases=brief_cases(
+                  [cmp, tcmp, mpc_cmp, full_bench, full_inj, full_traj], []),
+              full_output="chiprun_out/chip_smoke.jsonl"))
     emit(dict(quoted_not_measured="kernel ms of the one-thread-per-evaluation design, "
                                   "PERF.md, PR 2 (NVIDIA H100 80GB HBM3, 700 W)",
               pr2_ms=PR2_QUOTED_MS))

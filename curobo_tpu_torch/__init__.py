@@ -1,12 +1,15 @@
 """curobo_tpu_torch: the PyTorch/CUDA package beside `curobo_tpu`.
 
-Collision-free batched inverse kinematics and motion generation on an NVIDIA
-GPU through the same entry points as the JAX package
-(`Kinematics.from_robot_yaml` -> `compile_scene` -> `IKSolver.solve_pose`, and
-`MotionPlanner.plan_pose`: IK -> trajectory optimization -> interpolation),
+Collision-free batched inverse kinematics, motion generation and
+model-predictive control on an NVIDIA GPU through the same entry points as the
+JAX package (`Kinematics.from_robot_yaml` -> `compile_scene` ->
+`IKSolver.solve_pose`; `MotionPlanner.plan_pose` / `plan_cspace`: IK ->
+trajectory optimization -> interpolation; `MPCSolver.step` / `run_ticks`),
 with the fused IK and trajectory kernels written by hand in CUDA C++
-(`ops/ik_kernels.py`, `ops/traj_kernels.py`, `ops/csrc/`). Entry points run on
-the CUDA device unless the caller passes ``device="cpu"``.
+(`ops/ik_kernels.py`, `ops/traj_kernels.py`, `ops/csrc/`) and a generic
+objective in plain PyTorch for what the kernels do not take (goal sets,
+c-space goals, per-tool criteria). Entry points run on the CUDA device unless
+the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -39,20 +42,22 @@ from curobo_tpu_torch.geom.types import (
     MeshObstacle,
     VoxelGridObstacle,
 )
-from curobo_tpu_torch.geom.world import WorldData, compile_scene, empty_world
+from curobo_tpu_torch.geom.world import WorldData, compile_scene, empty_world, stack_worlds
 
 # Solvers
 from curobo_tpu_torch.solver.ik import IKConfig, IKResult, IKSolver
 from curobo_tpu_torch.solver.trajopt import TrajOptConfig, TrajOptResult, TrajOptSolver
 from curobo_tpu_torch.motion.planner import MotionPlanConfig, MotionPlanner, MotionPlanResult
 from curobo_tpu_torch.motion.batch_planner import BatchMotionPlanner
+from curobo_tpu_torch.solver.mpc import MPCConfig, MPCResult, MPCSolver, MPCState
 from curobo_tpu_torch.graph.prm import PRMConfig, PRMGraphPlanner
 
 # Collision convenience
 from curobo_tpu_torch.collision.robot_scene import RobotSceneCollision
 
 # Rollout / goal
-from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRolloutConfig
+from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRollout, RobotRolloutConfig
+from curobo_tpu_torch.types.tool_pose import ToolPoseCriteria
 
 from curobo_tpu_torch import runtime
 

@@ -1,8 +1,10 @@
 """Self-collision distance over a precomputed sphere-pair list (PyTorch).
 
 Counterpart of `curobo_tpu/geom/self_collision.py`: gather + pairwise
-distance + masked reduction with index tensors. The chunked scan for
-humanoid-scale pair lists waits for the humanoid slice.
+distance + masked reduction with index tensors. The pair distance is
+``sqrt(max(d2, 1e-12))`` as in the JAX generic path (the kernels use
+``sqrt(d2 + 1e-12)``). The chunked scan for humanoid-scale pair lists waits
+for the humanoid slice.
 """
 
 from __future__ import annotations
@@ -27,3 +29,14 @@ def self_collision_distance(sc: SelfCollisionParams, spheres: torch.Tensor) -> t
         return spheres.new_zeros(spheres.shape[:-2])
     dist = _pair_dist(sc, spheres)
     return (sc.pair_margin - dist).clamp_min(0.0).amax(dim=-1)
+
+
+def self_collision_cost(
+    sc: SelfCollisionParams, spheres: torch.Tensor, activation_distance: float = 0.0
+) -> torch.Tensor:
+    """Summed pair violation (...,) for optimization: sum over pairs of
+    max(margin + activation - distance, 0)."""
+    if sc.pair_a.shape[0] == 0:
+        return spheres.new_zeros(spheres.shape[:-2])
+    dist = _pair_dist(sc, spheres)
+    return (sc.pair_margin + activation_distance - dist).clamp_min(0.0).sum(dim=-1)

@@ -2,7 +2,8 @@
 
 Counterpart of `curobo_tpu/geom/world.py`: every obstacle type is a padded
 struct-of-arrays with an ``enabled`` mask. Mesh, point-cloud and voxel
-obstacles are not ported yet and make `compile_scene` raise.
+obstacles are not ported yet and make `compile_scene` raise. `stack_worlds`
+adds a leading axis (one world per MPC tick); `world_at` slices it.
 """
 
 from __future__ import annotations
@@ -236,6 +237,52 @@ def empty_world(device=None) -> WorldData:
     return compile_scene(gt.Scene(), device=device)
 
 
+def _map_tables(fn, *worlds: WorldData) -> WorldData:
+    """Apply fn to each obstacle table's tensors (one per world); names come
+    from the first world."""
+    w0 = worlds[0]
+    stores = {}
+    for field in ("cuboids", "spheres", "capsules", "cylinders"):
+        store = getattr(w0, field)
+        vals = {
+            f.name: fn(*(getattr(getattr(w, field), f.name) for w in worlds))
+            for f in dataclasses.fields(store)
+            if f.name != "names"
+        }
+        stores[field] = dataclasses.replace(store, **vals)
+    return dataclasses.replace(w0, **stores)
+
+
+def stack_worlds(worlds) -> WorldData:
+    """Stack worlds along a leading axis (one world per tick or environment).
+
+    All worlds must share capacities (compile the scenes with the same
+    ``capacities``); obstacle names are taken from the first. `world_at`
+    slices one world back out, on the device.
+    """
+    worlds = list(worlds)
+    if not worlds:
+        raise ValueError("stack_worlds: no worlds given")
+    for w in worlds:
+        if w.voxel_grids:
+            raise NotImplementedError("stack_worlds: voxel-grid worlds are not ported yet")
+
+    def stack(*ts):
+        if any(t.shape != ts[0].shape for t in ts):
+            raise ValueError(
+                "worlds must share obstacle capacities/types to stack "
+                "(compile with the same `capacities`)"
+            )
+        return torch.stack(ts)
+
+    return _map_tables(stack, *worlds)
+
+
+def world_at(worlds: WorldData, t: int) -> WorldData:
+    """World t of a `stack_worlds` stack (views, no copy)."""
+    return _map_tables(lambda a: a[t], worlds)
+
+
 # ---------------------------------------------------------------------------
 # Queries
 # ---------------------------------------------------------------------------
@@ -248,32 +295,31 @@ def sphere_sdf(world: WorldData, x: torch.Tensor) -> torch.Tensor:
     if len(world.voxel_grids) > 0:
         raise NotImplementedError("sphere_sdf: voxel-grid worlds are not ported yet")
     parts = []
-    big = x.new_tensor(BIG)
 
     if world.cuboids.pos.shape[0] > 0:
         cb = world.cuboids
         # (..., S, N, 3) local points: R^T (x - p)
         xl = torch.einsum("nji,...snj->...sni", cb.rot, x[..., None, :] - cb.pos)
         d = sdf_mod.sdf_box(xl, cb.half_dims)
-        parts.append(torch.where(cb.enabled > 0, d, big))
+        parts.append(torch.where(cb.enabled > 0, d, BIG))
 
     if world.spheres.center.shape[0] > 0:
         sp = world.spheres
         d = sdf_mod.sdf_sphere(x[..., None, :], sp.center, sp.radius)
-        parts.append(torch.where(sp.enabled > 0, d, big))
+        parts.append(torch.where(sp.enabled > 0, d, BIG))
 
     if world.capsules.pos.shape[0] > 0:
         cp = world.capsules
         a = (cp.rot @ cp.base[..., None])[..., 0] + cp.pos
         b = (cp.rot @ cp.tip[..., None])[..., 0] + cp.pos
         d = sdf_mod.sdf_capsule(x[..., None, :], a, b, cp.radius)
-        parts.append(torch.where(cp.enabled > 0, d, big))
+        parts.append(torch.where(cp.enabled > 0, d, BIG))
 
     if world.cylinders.pos.shape[0] > 0:
         cy = world.cylinders
         xl = torch.einsum("nji,...snj->...sni", cy.rot, x[..., None, :] - cy.pos)
         d = sdf_mod.sdf_cylinder(xl, cy.radius, cy.half_height)
-        parts.append(torch.where(cy.enabled > 0, d, big))
+        parts.append(torch.where(cy.enabled > 0, d, BIG))
 
     if not parts:
         return torch.full(x.shape[:-1], BIG, dtype=x.dtype, device=x.device)
@@ -283,3 +329,14 @@ def sphere_sdf(world: WorldData, x: torch.Tensor) -> torch.Tensor:
 def sphere_clearance(world: WorldData, spheres: torch.Tensor) -> torch.Tensor:
     """Signed clearance (sdf - radius) for robot spheres (..., S, 4)."""
     return sphere_sdf(world, spheres[..., :3]) - spheres[..., 3]
+
+
+def collision_cost(
+    world: WorldData, spheres: torch.Tensor, activation_distance: float = 0.025
+) -> torch.Tensor:
+    """Per-sphere activated penetration cost (..., S): max(0, activation -
+    clearance), zero for disabled robot spheres (negative radius)."""
+    clearance = sphere_clearance(world, spheres)
+    live = spheres[..., 3] >= 0
+    return torch.where(live, (activation_distance - clearance).clamp_min(0.0),
+                       torch.zeros_like(clearance))

@@ -31,7 +31,7 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

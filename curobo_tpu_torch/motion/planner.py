@@ -7,7 +7,8 @@ failed-seed repair from successful ones, trajectory optimization with finetune
 rounds (two `traj_solve` launches and one `traj_cost_grad` check per attempt),
 control-rate interpolation. An attempt that leaves a problem unsolved is
 retried harder: 4x the IK seeds, 8 trajectory seeds and PRM graph seeding.
-`plan_cspace` needs the non-kernel trajectory route and raises.
+`plan_cspace` plans to a joint-space goal through `TrajOptSolver.solve_cspace`
+(the generic trajectory route).
 """
 
 from __future__ import annotations
@@ -252,8 +253,29 @@ class MotionPlanner:
         success = approach.success & ik_res.success & seg_ok
         return approach, grasp_traj, success
 
-    def plan_cspace(self, world, goal_state: JointState, start_state: JointState, seed: int = 0):
-        raise NotImplementedError(
-            "MotionPlanner.plan_cspace: c-space goals need the non-kernel trajectory "
-            "route, which is not ported yet"
+    def plan_cspace(
+        self,
+        world: world_mod.WorldData,
+        goal_state: JointState,  # (B, D)
+        start_state: JointState,  # (B, D)
+        seed: int = 0,
+    ) -> MotionPlanResult:
+        """Plan to joint-space goals (reference `plan_cspace`,
+        `motion_planner.py:325`): one trajectory optimization, no IK."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        q_start = start_state.position.to(self.device)
+        res = self.trajopt.solve_cspace(world, goal_state.position.to(self.device), q_start,
+                                        seed=seed)
+        interp = self.trajopt.interpolate(res, q_start, cfg.interpolation_dt)
+        B = q_start.shape[0]
+        return MotionPlanResult(
+            success=res.success,
+            trajectory=interp,
+            solver_trajectory=res.trajectory,
+            motion_time=res.motion_time,
+            position_error=res.position_error,
+            rotation_error=res.rotation_error,
+            ik_success=torch.ones((B,), dtype=torch.bool, device=self.device),
+            plan_time=time.perf_counter() - t0,
         )

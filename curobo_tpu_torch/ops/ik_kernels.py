@@ -132,6 +132,18 @@ def rollout_config_is_supported(cfg: RobotRolloutConfig) -> bool:
     )
 
 
+def goal_takes_kernel(goal) -> bool:
+    """The goals every kernel route serves: one goal per tool, no per-tool
+    weights or tolerances, no c-space goal. Goal sets, tool criteria and
+    c-space goals take the generic route. Reads no tensor."""
+    return (
+        goal.goal_pos.shape[-3] == 1
+        and goal.tool_weight is None
+        and goal.tool_tolerance is None
+        and goal.goal_cspace is None
+    )
+
+
 # ---------------------------------------------------------------------------
 # Robot tables
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ Jacobian and the centre of mass wait for the slices that need them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -42,11 +43,22 @@ class KinematicsState:
         return self.tool_pose.quaternion
 
 
+@functools.lru_cache(maxsize=32)
+def _index_tables(dof_idx: Tuple[int, ...], joint_type: Tuple[int, ...], device: torch.device):
+    """(dof gather (L,), revolute mask (L,), prismatic mask (L,)) on `device`,
+    built once per robot topology: a host-to-device copy waits for the
+    device's queue, and the generic objective runs FK per evaluation."""
+    jt = np.asarray(joint_type)
+    return (
+        torch.as_tensor([max(d, 0) for d in dof_idx], dtype=torch.long, device=device),
+        torch.as_tensor((jt == JOINT_REVOLUTE).astype(np.float32), device=device),
+        torch.as_tensor((jt == JOINT_PRISMATIC).astype(np.float32), device=device),
+    )
+
+
 def joint_values(params: KinematicsParams, q: torch.Tensor) -> torch.Tensor:
     """Per-link joint values (..., n_links) incl. mimic/locked routing."""
-    gather = torch.as_tensor(
-        [max(d, 0) for d in params.dof_idx], dtype=torch.long, device=q.device
-    )
+    gather = _index_tables(params.dof_idx, params.joint_type, q.device)[0]
     return params.mimic_mult * q[..., gather] + params.mimic_offset
 
 
@@ -54,13 +66,7 @@ def _local_transforms(
     params: KinematicsParams, vals: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(R_local (..., L, 3, 3), p_local (..., L, 3)) for every link."""
-    jt = np.asarray(params.joint_type)
-    rev = torch.as_tensor(
-        (jt == JOINT_REVOLUTE).astype(np.float32), device=vals.device
-    )
-    prism = torch.as_tensor(
-        (jt == JOINT_PRISMATIC).astype(np.float32), device=vals.device
-    )
+    _, rev, prism = _index_tables(params.dof_idx, params.joint_type, vals.device)
     axis = params.joint_axis  # (L, 3)
     # Rodrigues for every link (fixed/prismatic links masked to identity).
     Rj = qm.axis_angle_rotation_matrix(axis, vals * rev)  # (..., L, 3, 3)

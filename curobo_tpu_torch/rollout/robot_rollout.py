@@ -1,9 +1,18 @@
-"""Rollout types: goals, cost configuration and result metrics.
+"""Robot rollout: goals, cost configuration, and the generic objective.
 
 Counterpart of `curobo_tpu/rollout/robot_rollout.py`: `Goal`,
-`RobotRolloutConfig` (fields and defaults equal) and `RolloutResult`. The
-generic objective `RobotRollout.evaluate_*` waits with the non-kernel solver
-route; the IK objective lives in `ops/ik_kernels.py`.
+`RobotRolloutConfig` (fields and defaults equal), `RolloutResult`, and
+`RobotRollout.evaluate_config` / `evaluate_trajectory`, the objective of the
+non-kernel route (goal sets, c-space goals, per-tool criteria, configurations
+the kernels refuse). It is plain PyTorch over `cost/terms.py` on purpose: the
+JAX package runs this route as XLA, with no Pallas kernel, and its gradient
+comes from autograd. Objectives take arbitrary leading batch axes; a
+trajectory adds a horizon axis before the dof: (..., H, D).
+
+The JAX package also has a B-last form of this objective (`ops/blast.py`); the
+port has this one, which the tests hold against both. The `_env` variants
+wait with multi-environment worlds; a torque limit (inverse dynamics) and an
+active support polygon raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -14,7 +23,12 @@ from typing import Optional
 import torch
 
 from curobo_tpu_torch.cost import terms
+from curobo_tpu_torch.geom import world as world_mod
+from curobo_tpu_torch.geom.self_collision import self_collision_distance
+from curobo_tpu_torch.robot import kinematics as kin_mod
+from curobo_tpu_torch.robot.params import KinematicsParams
 from curobo_tpu_torch.types.pose import Pose
+from curobo_tpu_torch.types.state import JointState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,12 +49,9 @@ class Goal:
 
     @staticmethod
     def from_pose(pose: Pose, n_tools: int = 1, criteria=None) -> "Goal":
-        """Build from a Pose with batch shape (B,), (B, T) or (B, G, T)."""
-        if criteria is not None:
-            raise NotImplementedError(
-                "Goal.from_pose(criteria=...): per-tool pose criteria "
-                "(types/tool_pose.py) are not ported yet"
-            )
+        """Build from a Pose with batch shape (B,), (B, T) or (B, G, T).
+
+        criteria: optional sequence of `ToolPoseCriteria`, one per tool frame."""
         pos, quat = pose.position, pose.quaternion
         if pos.ndim == 2:  # (B, 3) single tool, single goal
             pos = pos[:, None, None, :]
@@ -48,7 +59,12 @@ class Goal:
         elif pos.ndim == 3:  # (B, T, 3)
             pos = pos[:, None, :, :]
             quat = quat[:, None, :, :]
-        return Goal(goal_pos=pos, goal_quat=quat)
+        tw = tt = None
+        if criteria is not None:
+            from curobo_tpu_torch.types.tool_pose import stack_criteria
+
+            tw, tt = stack_criteria(criteria, device=pos.device)
+        return Goal(goal_pos=pos, goal_quat=quat, tool_weight=tw, tool_tolerance=tt)
 
     @property
     def batch(self) -> int:
@@ -90,8 +106,8 @@ class RobotRolloutConfig:
     acceleration_weight: float = 0.0
     jerk_weight: float = 0.0
     use_swept_collision: bool = True
-    # humanoid balance (support polygon) penalty; not ported yet, so any
-    # value but None is refused by the IK kernels
+    # humanoid balance (support polygon) penalty; not ported yet: the
+    # kernels refuse any value but None, the generic objective an active one
     support_polygon: Optional[object] = None
     support_hull: Optional[tuple] = None  # ((x, y), ...) CCW
     # inverse-dynamics torque-limit penalty
@@ -124,4 +140,142 @@ class RolloutResult:
             (self.pos_err <= pos_thresh)
             & (self.rot_err <= rot_thresh)
             & self.feasible
+        )
+
+
+def _refuse_unported(cfg: RobotRolloutConfig):
+    if cfg.support_polygon is not None and cfg.support_polygon.weight > 0:
+        raise NotImplementedError(
+            "RobotRollout: the support-polygon term (cost/support_polygon.py, "
+            "compute_com) is not ported yet"
+        )
+
+
+class RobotRollout:
+    """Objective factory for a (robot, cost-config) pair; the world and goal
+    are per-call arguments."""
+
+    def __init__(self, params: KinematicsParams, cfg: RobotRolloutConfig):
+        self.params = params
+        self.cfg = cfg
+
+    # -- single-state objective (IK) ------------------------------------
+    def evaluate_config(
+        self,
+        world: world_mod.WorldData,
+        goal: Goal,
+        q: torch.Tensor,  # (..., D)
+        collision_eps: float = 0.0,
+    ) -> RolloutResult:
+        p, cfg = self.params, self.cfg
+        _refuse_unported(cfg)
+        state = kin_mod.compute_kinematics(p, q)
+        cost, pos_err, rot_err = terms.pose_error(
+            state.tool_pose.position, state.tool_pose.quaternion,
+            goal.goal_pos, goal.goal_quat, cfg.pose_cost,
+            tool_weight=goal.tool_weight, tool_tolerance=goal.tool_tolerance,
+        )
+        cspace_err = None
+        if goal.goal_cspace is not None:
+            cs_c, cspace_err = terms.cspace_error(
+                q, goal.goal_cspace, p.cspace_weight, cfg.cspace_cost
+            )
+            cost = cost + cs_c
+        if cfg.null_space_weight > 0.0:
+            cost = cost + terms.null_space_cost(
+                q, p.retract_config, p.null_space_weight, cfg.null_space_weight
+            )
+        cost = cost + terms.bound_cost(q, p.joint_limits, cfg.bound_cost)
+        cost = cost + terms.scene_collision_cost(world, state.spheres, cfg.collision_cost)
+        cost = cost + terms.self_collision_cost_term(
+            p.self_collision, state.spheres, cfg.self_collision_cost
+        )
+
+        # metrics / feasibility (no activation margin)
+        live = state.spheres[..., 3] >= 0
+        clearance = world_mod.sphere_clearance(world, state.spheres)
+        in_collision = torch.any((clearance < -collision_eps) & live, dim=-1)
+        self_colliding = self_collision_distance(p.self_collision, state.spheres) > collision_eps
+        oob = terms.bound_violation(q, p.joint_limits, eps=1e-4)
+        return RolloutResult(
+            cost=cost, pos_err=pos_err, rot_err=rot_err, cspace_err=cspace_err,
+            feasible=~(in_collision | self_colliding | oob), in_collision=in_collision,
+            self_colliding=self_colliding, out_of_bounds=oob,
+        )
+
+    # -- trajectory objective (trajopt / MPC) ---------------------------
+    def evaluate_trajectory(
+        self,
+        world: world_mod.WorldData,
+        goal: Goal,
+        traj: JointState,  # tensors (..., H, D)
+        collision_eps: float = 0.0,
+    ) -> RolloutResult:
+        p, cfg = self.params, self.cfg
+        _refuse_unported(cfg)
+        if cfg.torque_limit_weight > 0.0 and traj.velocity is not None:
+            raise NotImplementedError(
+                "RobotRollout: the torque-limit term needs inverse dynamics "
+                "(robot/dynamics.py, RNEA), which is not ported yet"
+            )
+        q = traj.position
+        state = kin_mod.compute_kinematics(p, q)  # (..., H, ...)
+
+        # terminal pose cost (+ optional run weight on intermediate steps)
+        pose_all, pos_err_all, rot_err_all = terms.pose_error(
+            state.tool_pose.position, state.tool_pose.quaternion,
+            goal.goal_pos[..., None, :, :, :], goal.goal_quat[..., None, :, :, :],
+            cfg.pose_cost,
+            tool_weight=goal.tool_weight, tool_tolerance=goal.tool_tolerance,
+        )
+        cost = pose_all[..., -1]
+        if cfg.pose_run_weight > 0.0:
+            cost = cost + cfg.pose_run_weight * pose_all[..., :-1].mean(dim=-1)
+        pos_err = pos_err_all[..., -1]
+        rot_err = rot_err_all[..., -1]
+
+        cspace_err = None
+        if goal.goal_cspace is not None:
+            cs_c, cs_err_all = terms.cspace_error(
+                q, goal.goal_cspace[..., None, :], p.cspace_weight, cfg.cspace_cost
+            )
+            cost = cost + cs_c[..., -1]
+            cspace_err = cs_err_all[..., -1]
+
+        # bounds over the whole trajectory (incl. derivatives)
+        bc = terms.bound_cost(
+            q, p.joint_limits, cfg.bound_cost,
+            velocity=traj.velocity, acceleration=traj.acceleration, jerk=traj.jerk,
+        )
+        cost = cost + bc.sum(dim=-1)
+
+        # smoothness
+        for w, x in ((cfg.velocity_weight, traj.velocity),
+                     (cfg.acceleration_weight, traj.acceleration),
+                     (cfg.jerk_weight, traj.jerk)):
+            if w > 0.0 and x is not None:
+                cost = cost + w * (x * x).sum(dim=-1).mean(dim=-1)
+
+        # collisions
+        if cfg.use_swept_collision:
+            cc = terms.swept_scene_collision_cost(world, state.spheres, cfg.collision_cost)
+        else:
+            cc = terms.scene_collision_cost(world, state.spheres, cfg.collision_cost)
+        cost = cost + cc.sum(dim=-1)
+        sc = terms.self_collision_cost_term(
+            p.self_collision, state.spheres, cfg.self_collision_cost
+        )
+        cost = cost + sc.sum(dim=-1)
+
+        # feasibility over every step
+        live = state.spheres[..., 3] >= 0
+        clearance = world_mod.sphere_clearance(world, state.spheres)
+        in_collision = torch.any(torch.any((clearance < -collision_eps) & live, dim=-1), dim=-1)
+        self_d = self_collision_distance(p.self_collision, state.spheres)
+        self_colliding = torch.any(self_d > collision_eps, dim=-1)
+        oob = torch.any(terms.bound_violation(q, p.joint_limits, eps=1e-4), dim=-1)
+        return RolloutResult(
+            cost=cost, pos_err=pos_err, rot_err=rot_err, cspace_err=cspace_err,
+            feasible=~(in_collision | self_colliding | oob), in_collision=in_collision,
+            self_colliding=self_colliding, out_of_bounds=oob,
         )

@@ -1,13 +1,16 @@
 """Collision-free batched inverse kinematics solver.
 
-Counterpart of `curobo_tpu/solver/ik.py`, kernel route only: goal buffer ->
-seeds -> one `ik_solve` launch (pose-only warm-up, optional MPPI, L-BFGS,
-metrics, all inside the kernel) -> per-problem best-seed selection. Seeds fold
-into the batch axis. What the kernel route does not serve (goal sets, per-tool
-weights, c-space goals, voxel worlds, the LM seed stage) raises
-`NotImplementedError` until the route that serves it is ported; nothing falls
-back to another path. There is no per-world kernel cache: obstacle capacities
-are launch arguments of the kernels and nothing is compiled per world.
+Counterpart of `curobo_tpu/solver/ik.py`, both routes. The kernel route: goal
+buffer -> seeds -> one `ik_solve` launch (pose-only warm-up, optional MPPI,
+L-BFGS, metrics, all inside the kernel) -> per-problem best-seed selection.
+The generic route (`_solve_impl`), taken exactly where the JAX `solve_pose`
+leaves its kernel (a goal set, per-tool criteria, a rollout config the kernel
+refuses, ``use_pallas=False``): `mppi_optimize` and `lbfgs_optimize` over
+`RobotRollout.evaluate_config`, plain PyTorch with autograd gradients. Seeds
+fold into the batch axis. Voxel worlds and the LM seed stage raise
+`NotImplementedError`; a failed kernel build or launch raises and never moves
+the solve to the generic route. There is no per-world kernel cache: obstacle
+capacities are launch arguments of the kernels.
 """
 
 from __future__ import annotations
@@ -22,10 +25,10 @@ from curobo_tpu_torch import runtime
 from curobo_tpu_torch.cost import terms
 from curobo_tpu_torch.geom import world as world_mod
 from curobo_tpu_torch.ops import ik_kernels
-from curobo_tpu_torch.opt.lbfgs import LBFGSConfig
-from curobo_tpu_torch.opt.mppi import MPPIConfig
+from curobo_tpu_torch.opt.lbfgs import LBFGSConfig, lbfgs_optimize
+from curobo_tpu_torch.opt.mppi import MPPIConfig, mppi_optimize
 from curobo_tpu_torch.robot.params import KinematicsParams
-from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRolloutConfig
+from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRollout, RobotRolloutConfig
 from curobo_tpu_torch.types.pose import Pose
 from curobo_tpu_torch.util.sampling import halton_sequence
 
@@ -35,9 +38,12 @@ BIG = 1.0e8
 @dataclasses.dataclass(frozen=True)
 class IKConfig:
     n_seeds: int = 32
-    # kept for parity of fields with the reference; this package has the
-    # kernel route only
+    # kept for parity of fields with the reference: the JAX package has two
+    # generic objectives (blast and RobotRollout), this package one
+    # (RobotRollout), which serves whatever the kernel route does not
     use_blast: bool = True
+    # the fused `ik_solve` kernel where the goal and config allow it; False
+    # takes the generic route always
     use_pallas: bool = True
     use_particle_stage: bool = True
     # gradient (L-BFGS) polish stage; read by the non-kernel route only: as
@@ -102,6 +108,15 @@ class IKSolver:
             )
         self.params = params.to(self.device)
         self.cfg = cfg
+        self.rollout = RobotRollout(self.params, cfg.rollout)
+        self._ik_cost = self._solve_kernel = None
+        if cfg.use_pallas and ik_kernels.rollout_config_is_supported(cfg.rollout):
+            self._build_kernel()
+        # Halton seed bank in joint space (host constant, float64 as drawn).
+        self._seed_bank = halton_sequence(max(cfg.n_seeds - 1, 1), params.n_dof)
+
+    def _build_kernel(self):
+        cfg = self.cfg
         self._ik_cost = ik_kernels.IKCost(self.params, cfg.rollout, self.device)
         lb, mp = cfg.lbfgs, cfg.mppi
         self._solve_kernel = self._ik_cost.build_solver(
@@ -120,8 +135,6 @@ class IKSolver:
             ls_base=cfg.kernel_ls_base,
             ls_ratio=cfg.kernel_ls_ratio,
         )
-        # Halton seed bank in joint space (host constant, float64 as drawn).
-        self._seed_bank = halton_sequence(max(cfg.n_seeds - 1, 1), params.n_dof)
 
     # ------------------------------------------------------------------
     def generate_seeds(
@@ -142,7 +155,67 @@ class IKSolver:
         return torch.cat([first[:, None], rest], dim=1)
 
     # ------------------------------------------------------------------
+    def _use_kernel(self, goal: Goal) -> bool:
+        """The JAX `solve_pose`'s conditions for its kernel route."""
+        return (
+            self.cfg.use_pallas
+            and ik_kernels.goal_takes_kernel(goal)
+            and ik_kernels.rollout_config_is_supported(self.cfg.rollout)
+        )
+
+    @staticmethod
+    def _select(x, cost, pos_err, rot_err, conv) -> IKResult:
+        """Per-problem best seed: converged seeds by cost, else by position
+        error."""
+        B = x.shape[0]
+        score = torch.where(conv, cost, BIG + pos_err)
+        best = torch.argmin(score, dim=-1)  # (B,)
+
+        def take(a):
+            idx = best.reshape((B, 1) + (1,) * (a.ndim - 2)).expand((B, 1) + tuple(a.shape[2:]))
+            return torch.gather(a, 1, idx)[:, 0]
+
+        return IKResult(
+            solution=take(x),
+            success=take(conv),
+            position_error=take(pos_err),
+            rotation_error=take(rot_err),
+            cost=take(cost),
+            seed_solutions=x,
+            seed_success=conv,
+        )
+
     def _solve_impl(
+        self,
+        world: world_mod.WorldData,
+        goal: Goal,  # batch (B,)
+        seeds: torch.Tensor,  # (B, S, D)
+        seed: int,
+        signs: Optional[torch.Tensor] = None,
+    ) -> IKResult:
+        """The generic route: MPPI (signs from a generator keyed by `seed`, or
+        the given (B, S, D) signs) then L-BFGS over the generic objective, the
+        metrics, and the best-seed selection."""
+        cfg = self.cfg
+        B, S, D = seeds.shape
+        goal_s = goal.tile_seeds(S)
+        lo, hi = (torch.as_tensor(b, device=seeds.device) for b in self.params.dof_clip_bounds())
+
+        def cost(x):  # (B, S, D) with optional leading particle/candidate axes
+            return self.rollout.evaluate_config(world, goal_s, x).cost
+
+        x = seeds
+        if cfg.use_particle_stage:
+            gen = torch.Generator(device=seeds.device).manual_seed(seed)
+            x, _ = mppi_optimize(cost, x, gen, cfg.mppi, lower=lo, upper=hi, signs=signs)
+        if cfg.use_gradient_stage:
+            x, _ = lbfgs_optimize(cost, x, cfg.lbfgs, lower=lo, upper=hi)
+        with torch.no_grad():
+            res = self.rollout.evaluate_config(world, goal_s, x)
+        conv = res.converged(cfg.position_threshold, cfg.rotation_threshold)
+        return self._select(x, res.cost, res.pos_err, res.rot_err, conv)
+
+    def _solve_impl_kernel(
         self,
         world: world_mod.WorldData,
         goal: Goal,
@@ -170,22 +243,7 @@ class IKSolver:
             & (rot_err <= cfg.rotation_threshold)
             & feasible
         )
-        score = torch.where(conv, cost, BIG + pos_err)
-        best = torch.argmin(score, dim=-1)  # (B,)
-
-        def take(a):
-            idx = best.reshape((B, 1) + (1,) * (a.ndim - 2)).expand((B, 1) + tuple(a.shape[2:]))
-            return torch.gather(a, 1, idx)[:, 0]
-
-        return IKResult(
-            solution=take(x),
-            success=take(conv),
-            position_error=take(pos_err),
-            rotation_error=take(rot_err),
-            cost=take(cost),
-            seed_solutions=x,
-            seed_success=conv,
-        )
+        return self._select(x, cost, pos_err, rot_err, conv)
 
     # ------------------------------------------------------------------
     def solve_pose(
@@ -196,11 +254,12 @@ class IKSolver:
         seed_state: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
     ) -> IKResult:
-        """Solve batched IK for tool pose goals.
+        """Solve batched IK for tool pose goals (a goal set when the pose has
+        batch shape (B, G, T)).
 
         seed: integer key of the MPPI stage's generator. noise: optional
         pre-drawn standard normals (mppi_iters, n_particles, B * n_seeds, D)
-        used instead of the generator.
+        used by the kernel route instead of its generator.
         """
         from curobo_tpu_torch.util.checks import check_joint_config, check_pose_batch
 
@@ -211,32 +270,18 @@ class IKSolver:
             goal = Goal.from_pose(goal_pose.to(self.device))
         if seed_state is not None:
             seed_state = check_joint_config("seed_state", seed_state, self.params.n_dof)
-        if goal.goal_pos.shape[-3] != 1:
-            raise NotImplementedError(
-                "solve_pose: a goal_set (more than one goal per tool) needs the "
-                "non-kernel route, which is not ported yet"
-            )
         if goal.goal_pos.shape[-2] != self.params.n_tools:
             raise ValueError(
                 f"goal has {goal.goal_pos.shape[-2]} tool frames, robot has "
                 f"{self.params.n_tools}"
             )
-        if goal.tool_weight is not None or goal.tool_tolerance is not None:
-            raise NotImplementedError(
-                "solve_pose: per-tool weights/tolerances (tool_weight) need the "
-                "non-kernel route, which is not ported yet"
-            )
-        if goal.goal_cspace is not None:
-            raise NotImplementedError(
-                "solve_pose: c-space goals (goal_cspace) need the non-kernel "
-                "route, which is not ported yet"
-            )
         if not ik_kernels.world_is_supported(world):
             raise NotImplementedError(
-                "solve_pose: voxel-grid worlds need the non-kernel route, which "
-                "is not ported yet"
+                "solve_pose: voxel-grid worlds (dense SDF grids) are not ported yet"
             )
         if world.device != self.device:
             raise ValueError(f"world lies on {world.device}, solver on {self.device}")
         seeds = self.generate_seeds(goal.batch, seed_state)
-        return self._solve_impl(world, goal, seeds, seed, noise)
+        if self._use_kernel(goal):
+            return self._solve_impl_kernel(world, goal, seeds, seed, noise)
+        return self._solve_impl(world, goal, seeds, seed)

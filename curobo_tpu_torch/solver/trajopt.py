@@ -1,16 +1,21 @@
 """Trajectory optimization solver: B-spline knots + swept collision + retiming.
 
-Counterpart of `curobo_tpu/solver/trajopt.py`, kernel route only: seed
-trajectories (straight lines to the IK solutions, or graph-planner paths) ->
-per-seed dt estimate -> finetune rounds, each one `traj_solve` launch (optional
-MPPI, L-BFGS over the free knots, metrics, retimed dt) with the per-problem
-best seed kept -> the best trajectory at its retimed dt, checked by one
-`traj_cost_grad` launch in its metrics mode -> control-rate interpolation.
-What the kernel route does not serve (c-space goals, goal sets, more than one
-tool, per-tool weights, voxel worlds, per-axis pose weights, a torque limit, a
-support polygon) raises `NotImplementedError` until the route that serves it
-is ported; nothing falls back to another path. There is no per-world kernel
-cache: obstacle capacities are launch arguments and nothing is built per world.
+Counterpart of `curobo_tpu/solver/trajopt.py`: seed trajectories (straight
+lines to the IK solutions, or graph-planner paths) -> per-seed dt estimate ->
+finetune rounds with the per-problem best seed kept -> the best trajectory at
+its retimed dt, checked once more -> control-rate interpolation.
+
+Two routes, chosen by the JAX package's conditions (`_use_kernel`). The
+kernel route runs each round as one `traj_solve` launch (optional MPPI, L-BFGS
+over the free knots, metrics, retimed dt) and the final check as one
+`traj_cost_grad` launch in its metrics mode. The generic route (`_solve_seeds`)
+serves c-space goals (`solve_cspace`), goal sets, more than one tool, per-tool
+criteria, per-axis pose weights and ``use_pallas=False``: `mppi_optimize` and
+`lbfgs_optimize` over `RobotRollout.evaluate_trajectory`, plain PyTorch with
+autograd gradients. A torque limit, a support polygon and voxel worlds raise
+`NotImplementedError`; a failed kernel build or launch raises and never moves
+the solve to the generic route. There is no per-world kernel cache: obstacle
+capacities are launch arguments and nothing is built per world.
 """
 
 from __future__ import annotations
@@ -26,10 +31,11 @@ from curobo_tpu_torch.cost import terms
 from curobo_tpu_torch.geom import world as world_mod
 from curobo_tpu_torch.ops import ik_kernels
 from curobo_tpu_torch.ops.traj_kernels import TrajCost, traj_config_is_supported
-from curobo_tpu_torch.opt.lbfgs import LBFGSConfig
-from curobo_tpu_torch.opt.mppi import MPPIConfig
+from curobo_tpu_torch.opt.lbfgs import LBFGSConfig, lbfgs_optimize
+from curobo_tpu_torch.opt.mppi import MPPIConfig, mppi_optimize
+from curobo_tpu_torch.robot import kinematics as kin_mod
 from curobo_tpu_torch.robot.params import KinematicsParams
-from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRolloutConfig
+from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRollout, RobotRolloutConfig
 from curobo_tpu_torch.transition.bspline import BSplineConfig, BSplineTransition
 from curobo_tpu_torch.types.pose import Pose
 from curobo_tpu_torch.types.state import JointState
@@ -42,8 +48,8 @@ class TrajOptConfig:
     n_seeds: int = 4
     bspline: BSplineConfig = BSplineConfig(degree=5, n_control=16, horizon=32)
     use_particle_stage: bool = False
-    # kept for parity of fields with the reference; this package has the
-    # kernel route only
+    # the fused `traj_solve` kernel where the goal and config allow it; False
+    # takes the generic route always
     use_pallas: bool = True
     mppi: MPPIConfig = MPPIConfig(n_particles=16, n_iters=4, init_std=0.1)
     # with pin_goal the terminal pose is exact by construction; L-BFGS only
@@ -117,15 +123,42 @@ class TrajOptSolver:
 
     def __init__(self, params: KinematicsParams, cfg: TrajOptConfig = TrajOptConfig(), device=None):
         self.device = runtime.resolve_device(device)
-        if not traj_config_is_supported(cfg.rollout):
+        if cfg.rollout.torque_limit_weight > 0.0:
             raise NotImplementedError(
-                "TrajOptSolver: per-axis pose weights, the metric pose cost, a torque "
-                "limit and the support polygon need the non-kernel route, which is not "
-                "ported yet"
+                "TrajOptSolver: a torque limit needs inverse dynamics (robot/dynamics.py, "
+                "RNEA), which is not ported yet"
+            )
+        if cfg.rollout.support_polygon is not None:
+            raise NotImplementedError(
+                "TrajOptSolver: the support-polygon term is not ported yet"
             )
         self.params = params.to(self.device)
         self.cfg = cfg
         self.transition = BSplineTransition(cfg.bspline, device=self.device)
+        self._ft_rollout_cfg = self._scaled_rollout_cfg()
+        self.rollout = RobotRollout(self.params, cfg.rollout)
+        self.rollout_ft = RobotRollout(self.params, self._ft_rollout_cfg)
+        self._cost = self._solve_kernel = self._solve_kernel_ft = None
+        if cfg.use_pallas and traj_config_is_supported(cfg.rollout):
+            self._build_kernels()
+
+    def _scaled_rollout_cfg(self) -> RobotRolloutConfig:
+        """Rollout config with the pose weights boosted for the last finetune
+        round (1.0 leaves it unchanged)."""
+        cfg = self.cfg
+        s = cfg.finetune_pose_scale
+        if s == 1.0:
+            return cfg.rollout
+        pc = cfg.rollout.pose_cost
+        return dataclasses.replace(
+            cfg.rollout,
+            pose_cost=dataclasses.replace(
+                pc, position_weight=pc.position_weight * s, rotation_weight=pc.rotation_weight * s,
+            ),
+        )
+
+    def _build_kernels(self):
+        cfg = self.cfg
         self._cost = TrajCost(self.params, cfg.rollout, cfg.bspline, cfg.pin_goal, self.device)
         mp, lb = cfg.mppi, cfg.lbfgs
         kernel_opts = dict(
@@ -145,17 +178,18 @@ class TrajOptSolver:
         if cfg.finetune_pose_scale != 1.0 and cfg.finetune_attempts > 0:
             # a second objective with boosted pose weights for the last round
             # (no MPPI: it polishes warm starts)
-            pc = cfg.rollout.pose_cost
-            s = cfg.finetune_pose_scale
-            ft_rollout = dataclasses.replace(
-                cfg.rollout,
-                pose_cost=dataclasses.replace(
-                    pc, position_weight=pc.position_weight * s,
-                    rotation_weight=pc.rotation_weight * s,
-                ),
-            )
-            cost_ft = TrajCost(self.params, ft_rollout, cfg.bspline, cfg.pin_goal, self.device)
+            cost_ft = TrajCost(self.params, self._ft_rollout_cfg, cfg.bspline, cfg.pin_goal,
+                               self.device)
             self._solve_kernel_ft = cost_ft.build_solver(**{**kernel_opts, "mppi_iters": 0})
+
+    def _use_kernel(self, goal: Goal) -> bool:
+        """The JAX `TrajOptSolver._use_pallas` conditions."""
+        return (
+            self.cfg.use_pallas
+            and self.params.n_tools == 1  # the trajectory kernel tracks one tool frame
+            and ik_kernels.goal_takes_kernel(goal)
+            and traj_config_is_supported(self.cfg.rollout)
+        )
 
     # ------------------------------------------------------------------
     def estimate_dt(self, q_start: torch.Tensor, q_end: torch.Tensor) -> torch.Tensor:
@@ -182,7 +216,46 @@ class TrajOptSolver:
 
     # ------------------------------------------------------------------
     def _solve_seeds(
-        self, world, goal: Goal, q_start, free0, dt, seed: int, q_end=None, solve_kernel=None,
+        self, world, goal: Goal, q_start, free0, dt, seed: int, q_end=None, finetune=False,
+        signs: Optional[torch.Tensor] = None,
+    ) -> SeedSolveOut:
+        """The generic route's round over the B x S seed trajectories: MPPI
+        (when on; signs from a generator keyed by `seed`, or the given (B, S,
+        n_free * D) signs) and L-BFGS over the generic objective, then its
+        metrics and the retimed dt."""
+        cfg = self.cfg
+        B, S, n_free, D = free0.shape
+        goal_s = goal.tile_seeds(S)
+        qs = q_start[:, None].expand(B, S, D)
+        rollout = self.rollout_ft if finetune else self.rollout
+
+        def traj_of(x):  # (..., B, S, n_free * D) with optional leading axes
+            knots = x.reshape(x.shape[:-1] + (n_free, D))
+            return self.transition.rollout(knots, qs, dt, q_goal=q_end)
+
+        def cost(x):
+            return rollout.evaluate_trajectory(world, goal_s, traj_of(x)).cost
+
+        x = free0.reshape(B, S, n_free * D)
+        if cfg.use_particle_stage:
+            gen = torch.Generator(device=x.device).manual_seed(seed)
+            x, _ = mppi_optimize(cost, x, gen, cfg.mppi, signs=signs)
+        x, _ = lbfgs_optimize(cost, x, cfg.lbfgs)
+        with torch.no_grad():
+            traj = traj_of(x)
+            res = rollout.evaluate_trajectory(world, goal_s, traj)
+        return SeedSolveOut(
+            free_knots=x.reshape(B, S, n_free, D),
+            cost=res.cost,
+            feasible=res.feasible,
+            converged=res.converged(cfg.position_threshold, cfg.rotation_threshold),
+            pos_err=res.pos_err,
+            rot_err=res.rot_err,
+            dt_retimed=self._retime_dt(traj, dt),
+        )
+
+    def _solve_seeds_kernel(
+        self, world, goal: Goal, q_start, free0, dt, seed: int, q_end=None, finetune=False,
     ) -> SeedSolveOut:
         """One `traj_solve` launch over the B x S seed trajectories."""
         cfg = self.cfg
@@ -192,6 +265,7 @@ class TrajOptSolver:
             [goal_s.goal_pos[..., 0, 0, :], goal_s.goal_quat[..., 0, 0, :]], dim=-1
         ).reshape(B * S, 7)
         qs = q_start[:, None].expand(B, S, D).reshape(B * S, D)
+        solve_kernel = self._solve_kernel_ft if finetune else self._solve_kernel
         x, c, pe, re, fe, dt_ret = solve_kernel(
             goal7.contiguous(), free0.reshape(B * S, n_free * D).contiguous(), qs.contiguous(),
             dt.reshape(B * S).contiguous(), seed, world,
@@ -228,32 +302,46 @@ class TrajOptSolver:
         q_start = check_joint_config("q_start", q_start, self.params.n_dof).to(self.device)
         seed_q = check_joint_config("seed_q", seed_q, self.params.n_dof).to(self.device)
         goal = Goal.from_pose(goal_pose.to(self.device))
-        if goal.goal_pos.shape[-3] != 1 or goal.goal_pos.shape[-2] != 1:
-            raise NotImplementedError(
-                "TrajOptSolver.solve_pose: goal sets and more than one tool frame need "
-                "the non-kernel route, which is not ported yet"
-            )
+        if seed_paths is not None:
+            seed_paths = seed_paths.to(self.device)
+        return self._solve(world, goal, q_start, seed_q, seed, seed_paths)
+
+    def solve_cspace(
+        self,
+        world: world_mod.WorldData,
+        goal_q: torch.Tensor,  # (B, D)
+        q_start: torch.Tensor,  # (B, D)
+        seed: int = 0,
+    ) -> TrajOptResult:
+        """Plan to a joint-space goal: the goal pose is FK of the goal
+        configuration (so the pose metrics stay meaningful), the c-space cost
+        is added, and the goal configuration is the single seed. Always the
+        generic route (the trajectory kernels hold a pose objective only)."""
+        from curobo_tpu_torch.util.checks import check_joint_config
+
+        goal_q = check_joint_config("goal_q", goal_q, self.params.n_dof).to(self.device)
+        q_start = check_joint_config("q_start", q_start, self.params.n_dof).to(self.device)
+        st = kin_mod.compute_kinematics(self.params, goal_q)
+        goal = Goal.from_pose(Pose(st.tool_pose.position[:, 0], st.tool_pose.quaternion[:, 0]))
+        goal = dataclasses.replace(goal, goal_cspace=goal_q)
+        return self._solve(world, goal, q_start, goal_q[:, None], seed)
+
+    def _solve(self, world, goal, q_start, seed_q, seed, seed_paths=None) -> TrajOptResult:
         if not ik_kernels.world_is_supported(world):
             raise NotImplementedError(
-                "TrajOptSolver.solve_pose: voxel-grid worlds need the non-kernel route, "
-                "which is not ported yet"
+                "TrajOptSolver: voxel-grid worlds (dense SDF grids) are not ported yet"
             )
         if world.device != self.device:
             raise ValueError(f"world lies on {world.device}, solver on {self.device}")
-        if seed_paths is not None:
-            seed_paths = seed_paths.to(self.device)
-        return self._finetune_impl(world, goal, q_start, seed_q, seed_paths, seed)
-
-    def solve_cspace(self, world, goal_q, q_start, seed: int = 0) -> TrajOptResult:
-        raise NotImplementedError(
-            "TrajOptSolver.solve_cspace: c-space goals need the non-kernel route "
-            "(the trajectory kernels hold a pose objective only), which is not ported yet"
-        )
+        return self._finetune_impl(world, goal, q_start, seed_q, seed_paths, seed,
+                                   self._use_kernel(goal))
 
     # ------------------------------------------------------------------
-    def _finetune_impl(self, world, goal, q_start, seed_q, seed_paths, seed) -> TrajOptResult:
+    def _finetune_impl(self, world, goal, q_start, seed_q, seed_paths, seed,
+                       use_kernel: bool) -> TrajOptResult:
         """Seed construction, finetune rounds with the per-problem best-seed
-        merge, and the final check of the best trajectory at its retimed dt."""
+        merge, and the final check of the best trajectory at its retimed dt
+        (the kernel's metrics mode, or the generic objective)."""
         cfg = self.cfg
         B, S, D = seed_q.shape
         pin = cfg.pin_goal
@@ -269,8 +357,8 @@ class TrajOptSolver:
         rows = torch.arange(B, device=self.device)
         for attempt in range(cfg.finetune_attempts + 1):
             last = attempt == cfg.finetune_attempts and attempt > 0
-            kernel = self._solve_kernel_ft if last else self._solve_kernel
-            out = self._solve_seeds(world, goal, q_start, free0, dt, seed, q_end, kernel)
+            solve = self._solve_seeds_kernel if use_kernel else self._solve_seeds
+            out = solve(world, goal, q_start, free0, dt, seed, q_end, finetune=last)
             ok = out.converged
             # candidate score: converged -> motion time, else BIG (+ pos_err)
             mt = out.dt_retimed * (cfg.bspline.horizon - 1)
@@ -306,14 +394,20 @@ class TrajOptSolver:
             best["free_knots"], q_start, best["dt"], q_goal=best_q_end,
             joint_names=self.params.joint_names,
         )
-        # final check at the retimed dt: the objective kernel's metrics mode
-        goal7 = torch.cat([goal.goal_pos[:, 0, 0], goal.goal_quat[:, 0, 0]], dim=-1).contiguous()
-        cost, pe, re, fe, _ = self._cost.metrics(
-            goal7, best["free_knots"].reshape(B, -1).contiguous(), q_start.contiguous(),
-            best["dt"].contiguous(), world,
-            q_end=None if best_q_end is None else best_q_end.contiguous(),
-        )
-        conv = (pe <= cfg.position_threshold) & (re <= cfg.rotation_threshold) & (fe > 0.5)
+        # final check at the retimed dt
+        if use_kernel:  # the objective kernel's metrics mode
+            goal7 = torch.cat([goal.goal_pos[:, 0, 0], goal.goal_quat[:, 0, 0]], dim=-1)
+            cost, pe, re, fe, _ = self._cost.metrics(
+                goal7.contiguous(), best["free_knots"].reshape(B, -1).contiguous(),
+                q_start.contiguous(), best["dt"].contiguous(), world,
+                q_end=None if best_q_end is None else best_q_end.contiguous(),
+            )
+            feasible = fe > 0.5
+        else:
+            with torch.no_grad():
+                res = self.rollout.evaluate_trajectory(world, goal, traj)
+            cost, pe, re, feasible = res.cost, res.pos_err, res.rot_err, res.feasible
+        conv = (pe <= cfg.position_threshold) & (re <= cfg.rotation_threshold) & feasible
         return TrajOptResult(
             trajectory=traj,
             success=conv & best["success"],

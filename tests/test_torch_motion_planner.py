@@ -243,9 +243,20 @@ def test_validate_trajectory_matches_jax(franka):
     assert np.array_equal(a, b)
 
 
-def test_plan_cspace_and_device_refusals(franka):
-    with pytest.raises(NotImplementedError, match="c-space"):
-        ct.MotionPlanner(franka["kt"].params, _shallow_cfg(), device="cpu").plan_cspace(None, None, None)
+def test_plan_cspace_and_device_refusals(franka, planner, suite):
+    """plan_cspace runs on the Franka (the generic trajectory route; held to
+    the JAX package in tests/test_torch_trajopt.py): from a suite problem's
+    start to its goal configuration, pinned at both ends."""
+    p = suite["problems"][40]
+    names = franka["kt"].joint_names
+    start = ct.JointState.from_position(torch.tensor([p["q_start"]]), names)
+    goal = ct.JointState.from_position(torch.tensor([p["q_goal_oracle"]]), names)
+    res = planner.plan_cspace(franka["wt"], goal, start)
+    st = res.solver_trajectory
+    assert st.position.shape == (1, 32, 7) and bool(res.ik_success.all())
+    assert torch.isfinite(res.trajectory.position).all() and torch.isfinite(st.jerk).all()
+    torch.testing.assert_close(st.position[:, 0], start.position, atol=1e-5, rtol=0)
+    torch.testing.assert_close(st.position[:, -1], goal.position, atol=1e-5, rtol=0)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device resolves")
     with pytest.raises(RuntimeError, match="CUDA"):

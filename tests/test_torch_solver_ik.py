@@ -22,6 +22,7 @@ import curobo_tpu_torch as ct
 from curobo_tpu.geom import types as jgt
 from curobo_tpu.geom import world as jwm
 from curobo_tpu.opt.lbfgs import LBFGSConfig as JLBFGSConfig
+from curobo_tpu.opt.mppi import MPPIConfig as JMPPIConfig
 from curobo_tpu.robot.kinematics import Kinematics as JKin
 from curobo_tpu.robot.kinematics import compute_kinematics as jfk
 from curobo_tpu.rollout.robot_rollout import Goal as JGoal
@@ -218,20 +219,90 @@ def test_particle_stage_runs_through_the_solver(franka):
 
 @pytest.mark.parametrize("case", ["goal_set", "tool_weight", "goal_cspace", "voxel_world", "use_lm_seed"])
 def test_what_the_kernel_route_does_not_serve_raises(franka, case):
+    """Goal sets, per-tool weights and c-space goals leave the kernel route
+    for the generic one, as in the JAX package (and give finite results);
+    voxel worlds and the LM seed stage still raise."""
     kin, world, solver = franka
-    pos, quat = torch.zeros(2, 3), torch.tensor([[1.0, 0, 0, 0]] * 2)
+    pos, quat = torch.zeros(2, 3) + 0.3, torch.tensor([[0.0, 1.0, 0, 0]] * 2)
     goal = ct.Goal.from_pose(ct.Pose(pos, quat))
-    with pytest.raises(NotImplementedError, match=case if case != "voxel_world" else "voxel"):
-        if case == "goal_set":
-            solver.solve_pose(world, ct.Pose(torch.zeros(2, 3, 1, 3), torch.ones(2, 3, 1, 4)))
-        elif case == "tool_weight":
-            solver.solve_pose(world, dataclasses.replace(goal, tool_weight=torch.ones(1, 6)))
-        elif case == "goal_cspace":
-            solver.solve_pose(world, dataclasses.replace(goal, goal_cspace=torch.zeros(2, 7)))
-        elif case == "voxel_world":
-            solver.solve_pose(dataclasses.replace(world, voxel_grids=(object(),)), ct.Pose(pos, quat))
-        else:
-            ct.IKSolver(kin.params, ct.IKConfig(use_lm_seed=True), device="cpu")
+    if case in ("voxel_world", "use_lm_seed"):
+        with pytest.raises(NotImplementedError, match="voxel" if case == "voxel_world" else case):
+            if case == "voxel_world":
+                solver.solve_pose(dataclasses.replace(world, voxel_grids=(object(),)),
+                                  ct.Pose(pos, quat))
+            else:
+                ct.IKSolver(kin.params, ct.IKConfig(use_lm_seed=True), device="cpu")
+        return
+    if case == "goal_set":
+        goal = ct.Goal.from_pose(ct.Pose(pos[:, None, None].expand(2, 3, 1, 3).contiguous(),
+                                         quat[:, None, None].expand(2, 3, 1, 4).contiguous()))
+    elif case == "tool_weight":
+        goal = dataclasses.replace(goal, tool_weight=torch.ones(1, 6))
+    else:
+        goal = dataclasses.replace(goal, goal_cspace=kin.params.retract_config.expand(2, 7))
+    assert solver._use_kernel(ct.Goal.from_pose(ct.Pose(pos, quat)))
+    assert not solver._use_kernel(goal)
+    res = solver.solve_pose(world, goal)
+    assert res.solution.shape == (2, 7)
+    for name in ("solution", "position_error", "rotation_error", "cost", "seed_solutions"):
+        assert torch.isfinite(getattr(res, name)).all(), name
+
+
+def test_kernel_supported_goal_never_takes_the_generic_route(franka, monkeypatch):
+    kin, world, solver = franka
+
+    def refuse(*a, **k):
+        raise AssertionError("the generic route ran")
+
+    monkeypatch.setattr(solver, "_solve_impl", refuse)
+    goal = ct.Pose(torch.tensor([[0.4, 0.1, 0.4]]), torch.tensor([[0.0, 1.0, 0.0, 0.0]]))
+    assert torch.isfinite(solver.solve_pose(world, goal).cost).all()
+    generic = ct.IKSolver(kin.params, dataclasses.replace(solver.cfg, use_pallas=False), device="cpu")
+    assert generic._solve_kernel is None and not generic._use_kernel(ct.Goal.from_pose(goal))
+    monkeypatch.setattr(generic, "_solve_impl_kernel", refuse)
+    assert torch.isfinite(generic.solve_pose(world, goal).cost).all()
+
+
+def test_goal_set_solve_matches_jax_generic_route(ur10e):
+    """Goal-set IK (G = 3) on the UR10e: the PyTorch generic route against the
+    JAX `IKSolver._solve_impl` (its RobotRollout objective: blast does not take
+    goal sets) with the JAX MPPI signs injected. Success equal on >= 95 % of
+    the seeds; where both converge with a margin, the same problems succeed.
+    (The seeds' solutions are not held to 1e-3: over 25 L-BFGS iterations a
+    line-search tie parts the two runs on about a sixth of them.)"""
+    u = ur10e
+    B, G, S, D = 8, 3, 6, u["D"]
+    jcfg = JIKConfig(n_seeds=S, mppi=JMPPIConfig(n_particles=6, n_iters=2, init_std=0.3),
+                     lbfgs=JLBFGSConfig(history=6, n_iters=25))
+    tcfg = ct.IKConfig(n_seeds=S, mppi=MPPIConfig(n_particles=6, n_iters=2, init_std=0.3),
+                       lbfgs=LBFGSConfig(history=6, n_iters=25))
+    rng = np.random.RandomState(8)
+    qg = rng.uniform(-1.2, 1.2, (B, G, D)).astype(np.float32)
+    st = jfk(u["kj"].params, jnp.asarray(qg))
+    pos = np.asarray(st.tool_pose.position[:, :, :1])  # (B, G, 1, 3)
+    quat = np.asarray(st.tool_pose.quaternion[:, :, :1])
+    js = JIKSolver(u["kj"].params, jcfg)
+    key = jax.random.PRNGKey(1)
+    seeds = js.generate_seeds(B)
+    rj = jax.jit(js._solve_impl)(u["wj"].anonymized(),
+                                  JGoal.from_pose(JPose(jnp.asarray(pos), jnp.asarray(quat))),
+                                  seeds, key)
+    signs = np.array(jax.random.rademacher(key, (B, S, D), dtype=jnp.float32))
+    ts = ct.IKSolver(u["kt"].params, tcfg, device="cpu")
+    goal = ct.Goal.from_pose(ct.Pose(torch.as_tensor(pos), torch.as_tensor(quat)))
+    assert not ts._use_kernel(goal)
+    rt = ts._solve_impl(u["wt"], goal, ts.generate_seeds(B), 0, signs=torch.as_tensor(signs))
+    ss_j, ss_t = np.asarray(rj.seed_success), rt.seed_success.numpy()
+    assert (ss_j == ss_t).mean() >= 0.95
+    clear_j = (np.asarray(rj.position_error) < 0.0025) & (np.asarray(rj.rotation_error) < 0.025)
+    clear_t = (rt.position_error.numpy() < 0.0025) & (rt.rotation_error.numpy() < 0.025)
+    both = clear_j & clear_t
+    assert np.array_equal(np.asarray(rj.success)[both], rt.success.numpy()[both])
+    assert rt.success.numpy().sum() >= B // 2  # the route solves goal sets
+    # a solved problem reaches one of its goals
+    fk = u["kt"].compute_kinematics(rt.solution).tool_pose.position[:, 0].numpy()
+    near = np.linalg.norm(fk[:, None] - pos[:, :, 0], axis=-1).min(axis=1)
+    assert (near[rt.success.numpy()] < 0.005 + 1e-5).all()
 
 
 def test_solver_without_device_raises_where_there_is_no_card(franka):

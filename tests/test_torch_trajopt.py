@@ -180,26 +180,73 @@ def test_particle_stage_runs_through_the_solver(ur10e):
 
 
 def test_what_the_kernel_route_does_not_serve_raises(ur10e):
+    """C-space goals, goal sets and per-axis pose weights take the generic
+    route, as in the JAX package; voxel worlds and a torque limit raise."""
     u = ur10e
     ts, wt = u["ts"], u["wt"]
     qs, sq = torch.as_tensor(u["q_start"][:2]), torch.as_tensor(u["seed_q"][:2])
     goal = ct.Pose(torch.as_tensor(u["pos"][:2]), torch.as_tensor(u["quat"][:2]))
-    with pytest.raises(NotImplementedError, match="c-space"):
-        ts.solve_cspace(wt, sq[:, 0], qs)
-    with pytest.raises(NotImplementedError, match="goal sets"):
-        ts.solve_pose(wt, ct.Pose(torch.zeros(2, 3, 1, 3), torch.ones(2, 3, 1, 4)), qs, sq)
+    assert ts._use_kernel(ct.Goal.from_pose(goal))
+    gset = ct.Pose(torch.as_tensor(u["pos"][:2])[:, None, None].expand(2, 3, 1, 3).contiguous(),
+                   torch.as_tensor(u["quat"][:2])[:, None, None].expand(2, 3, 1, 4).contiguous())
+    assert not ts._use_kernel(ct.Goal.from_pose(gset))
+    for res in (ts.solve_cspace(wt, sq[:, 0], qs), ts.solve_pose(wt, gset, qs, sq)):
+        assert torch.isfinite(res.cost).all() and torch.isfinite(res.trajectory.position).all()
     with pytest.raises(NotImplementedError, match="voxel"):
         ts.solve_pose(dataclasses.replace(wt, voxel_grids=(object(),)), goal, qs, sq)
     base = u["tcfg"]
-    for bad in (
-        dataclasses.replace(base.rollout, torque_limit_weight=1.0),
-        dataclasses.replace(base.rollout, pose_cost=tterms.PoseCostConfig(
-            position_axis_weight=(1.0, 1.0, 0.0))),
-    ):
-        with pytest.raises(NotImplementedError, match="non-kernel route"):
-            ct.TrajOptSolver(u["kt"].params, dataclasses.replace(base, rollout=bad), device="cpu")
+    with pytest.raises(NotImplementedError, match="inverse dynamics"):
+        ct.TrajOptSolver(u["kt"].params, dataclasses.replace(
+            base, rollout=dataclasses.replace(base.rollout, torque_limit_weight=1.0)), device="cpu")
+    axis = ct.TrajOptSolver(u["kt"].params, dataclasses.replace(base, rollout=dataclasses.replace(
+        base.rollout, pose_cost=tterms.PoseCostConfig(position_axis_weight=(1.0, 1.0, 0.0)))),
+        device="cpu")
+    assert axis._solve_kernel is None and not axis._use_kernel(ct.Goal.from_pose(goal))
     with pytest.raises(ValueError, match="seed_q"):
         ts.solve_pose(wt, goal, qs, sq[..., :5])
+
+
+@pytest.fixture(scope="module")
+def cspace(ur10e):
+    """solve_cspace of both packages: the JAX one takes its generic route
+    (`_finetune_xla`: `_solve_seeds` over the blast objective)."""
+    u = ur10e
+    q_goal = u["seed_q"][:, 0]
+    rj = u["js"].solve_cspace(jwm.compile_scene(_scene(jgt)), jnp.asarray(q_goal),
+                              jnp.asarray(u["q_start"]))
+    rt = u["ts"].solve_cspace(u["wt"], torch.as_tensor(q_goal), torch.as_tensor(u["q_start"]))
+    return dict(rj=rj, rt=rt, q_goal=q_goal)
+
+
+def test_solve_cspace_matches_jax_generic_route(ur10e, cspace):
+    u, rj, rt = ur10e, cspace["rj"], cspace["rt"]
+    sj, st = np.asarray(rj.success), rt.success.numpy()
+    assert (sj == st).mean() >= 0.95
+    assert 0 < st.sum()
+    both = sj & st
+    np.testing.assert_allclose(rt.motion_time.numpy()[both], np.asarray(rj.motion_time)[both],
+                               rtol=1e-3)
+    # the spline ends pinned at the goal configuration, and starts at q_start
+    np.testing.assert_allclose(rt.trajectory.position[:, -1].numpy(), cspace["q_goal"], atol=1e-5)
+    np.testing.assert_allclose(rt.trajectory.position[:, 0].numpy(), u["q_start"], atol=1e-5)
+
+
+def test_plan_cspace_matches_jax(ur10e, cspace):
+    """`MotionPlanner.plan_cspace` = `solve_cspace` + interpolation, held to
+    the JAX solve and the JAX interpolation of it."""
+    u, rj = ur10e, cspace["rj"]
+    planner = ct.MotionPlanner(u["kt"].params, ct.MotionPlanConfig(trajopt=u["tcfg"]), device="cpu")
+    names = u["kt"].joint_names
+    res = planner.plan_cspace(u["wt"], ct.JointState.from_position(torch.as_tensor(cspace["q_goal"]), names),
+                              ct.JointState.from_position(torch.as_tensor(u["q_start"]), names))
+    sj, st = np.asarray(rj.success), res.success.numpy()
+    assert (sj == st).mean() >= 0.95 and bool(res.ik_success.all())
+    interp_j = u["js"].interpolate(rj, jnp.asarray(u["q_start"]), 0.02)
+    both = sj & st
+    n = min(res.trajectory.position.shape[1], interp_j.position.shape[1])
+    np.testing.assert_allclose(res.trajectory.position.numpy()[both, :n],
+                               np.asarray(interp_j.position)[both, :n], atol=2e-3)
+    assert torch.isfinite(res.trajectory.position).all() and res.plan_time > 0.0
 
 
 def test_solver_without_device_raises_where_there_is_no_card(ur10e):
