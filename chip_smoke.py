@@ -23,6 +23,11 @@ and `step` on the reference bench's 50-tick episode and a tracking episode
 (phase `mpc`: one `traj_solve` launch a tick, tick time, busy share, feasible
 rate), and runs the generic route on the card: goal-set IK and `plan_cspace`
 (phase `generic`, gated by the JAX package's CPU result on the same problems).
+Phase `dual` holds both IK kernels at two tool frames (the dual-arm UR10e,
+3200 configurations) against their plain versions and solves the reference
+bench's 100 dual-arm goals x 32 seeds through `IKSolver.solve_pose` with the LM
+seed stage (`bench.py:bench_dual_ur10e_cfik`'s budget): time per solve, the LM
+stage and the kernel apart, success (fails under 0.95), one `ik_solve` a solve.
 The traces and the compiler's `-Xptxas -v` logs are written to
 `chiprun_out/`. Every line of output is one JSON object, except the line with
 the card's name and power limit. Exits non-zero on the first failed phase, and
@@ -217,11 +222,11 @@ def budget_of(cfg: ct.IKConfig) -> ikk.IKSolveBudget:
 def eval_flops(tab: ikk.IKTables, world_tabs, grad: bool, pose_only: bool) -> float:
     n_rev = sum(1 for kind, _, _ in tab.link_host if kind == 1)
     fk = tab.L * (45 + 18) + n_rev * (30 + 45)  # compose R, p; Rodrigues + fixed @ joint
-    pose = 120
+    pose = 120 * tab.T  # per tool frame
     bounds = 8 * tab.D
     f = fk + pose + bounds
     if grad:
-        f += tab.L * 30 + 40  # reverse sweep + tool force/torque
+        f += tab.L * 30 + 40 * tab.T  # reverse sweep + each tool's force/torque
     if pose_only:
         return float(f)
     n_live = int((tab.sph_f[:, 3] >= 0).sum())
@@ -664,16 +669,21 @@ def compare_big_world(kin, suite, tab, goal7, q, n_ik=256, n_traj=8):
     return out
 
 
-def determinism(tab, wt0, g32, s32, default_b, tt, wt_t, in4, traj_b):
+def determinism(tab, wt0, g32, s32, default_b, tt, wt_t, in4, traj_b, du):
     """Two launches of each solver kernel on the same inputs give the same
-    bits (the planner's "same seed -> same plan" rests on it)."""
+    bits (the planner's "same seed -> same plan" rests on it); `ik_solve` at
+    one tool frame (Franka) and at two (dual UR10e, the bench budget)."""
     a = ikk.ik_solve(tab, wt0, g32, s32, default_b, 5, None)
     b = ikk.ik_solve(tab, wt0, g32, s32, default_b, 5, None)
     c = tk.traj_solve(tt, wt_t, *in4, traj_b)
     d = tk.traj_solve(tt, wt_t, *in4, traj_b)
+    dual_b = budget_of(du["cfg"])
+    e = ikk.ik_solve(du["tab"], du["wt"], du["goal7"], du["lm_flat"], dual_b, 5, None)
+    f = ikk.ik_solve(du["tab"], du["wt"], du["goal7"], du["lm_flat"], dual_b, 5, None)
     torch.cuda.synchronize()
     res = dict(ik_solve_n32_bitwise_equal=all(torch.equal(x, y) for x, y in zip(a, b)),
-               traj_solve_np4_bitwise_equal=all(torch.equal(x, y) for x, y in zip(c, d)))
+               traj_solve_np4_bitwise_equal=all(torch.equal(x, y) for x, y in zip(c, d)),
+               ik_solve_dual_n3200_bitwise_equal=all(torch.equal(x, y) for x, y in zip(e, f)))
     if not all(res.values()):
         fail(f"two launches on the same inputs differ: {res}")
     return res
@@ -720,6 +730,7 @@ def trace_busy(path, prefix, n_windows):
         out["note"] = "the profiler recorded no device time; see the CUDA-event counts"
         return out
     window = busy = 0.0
+    n_in = 0
     gaps, by_name = [], {}
     for t0, t1 in wins:
         window += t1 - t0
@@ -727,6 +738,7 @@ def trace_busy(path, prefix, n_windows):
         for a, b, name in dev:
             if b <= t0 or a >= t1:
                 continue
+            n_in += 1
             a, b = max(a, t0), min(b, t1)
             short = name.split("(")[0][:60]
             by_name[short] = by_name.get(short, 0.0) + (b - a)
@@ -739,7 +751,8 @@ def trace_busy(path, prefix, n_windows):
             gaps.append((t1 - prev_end, prev_name, "end of window"))
     gaps.sort(reverse=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    out.update(window_ms=window / 1e3, device_busy_ms=busy / 1e3, busy_share=busy / window,
+    out.update(window_ms=window / 1e3, device_events_in_windows=n_in,
+               device_busy_ms=busy / 1e3, busy_share=busy / window,
                idle_share=1.0 - busy / window,
                kernel_ms_by_name={k: v / 1e3 for k, v in top},
                longest_idle_gaps=[dict(ms=g / 1e3, after=a, before=b) for g, a, b in gaps[:8]],
@@ -902,6 +915,181 @@ def plan_phase(kin, suite, t_start, deadline_s=780.0):
     if summary["success_rate"] < 0.95:
         fail(f"motion-generation success rate {summary['success_rate']} is under 0.95: {summary}")
     return summary, launches, planner
+
+
+# ---------------------------------------------------------------------------
+# Dual-arm IK (two tool frames): the reference bench `bench.py:bench_dual_ur10e_cfik`
+# ---------------------------------------------------------------------------
+def dual_scene():
+    """`bench.py:250-255`: one table cuboid under both arms."""
+    return gt.Scene().add(
+        gt.Cuboid(name="table", pose=[0.0, 0.0, -0.1, 1, 0, 0, 0], dims=[4.0, 4.0, 0.2])
+    )
+
+
+def dual_ik_config():
+    """`bench.py:271-283`: 32 seeds, LM seed 12, pose-only warm-up 32, no
+    MPPI, L-BFGS 24 with history 10, a 6-point kernel line search."""
+    return ct.IKConfig(
+        n_seeds=N_SEEDS, use_lm_seed=True, lm_seed_iters=12, warmup_iters=32,
+        use_particle_stage=False, lbfgs=LBFGSConfig(history=10, n_iters=24), kernel_linesearch=6,
+    )
+
+
+def dual_goals(kin, world):
+    """`bench.py:258-269`: FK of collision-free configurations drawn uniformly
+    in the joint limits clipped to +-pi (RandomState(11), rejection by
+    `RobotSceneCollision.validate`) -> goals batch (100, 2 tools)."""
+    p = kin.params
+    rsc = ct.RobotSceneCollision(p)
+    rng = np.random.RandomState(11)
+    lo = np.maximum(p.joint_limits.lower.cpu().numpy(), -np.pi)
+    hi = np.minimum(p.joint_limits.upper.cpu().numpy(), np.pi)
+    pool, got = [], 0
+    while got < N_GOALS:
+        cand = rng.uniform(lo, hi, (4 * N_GOALS, p.n_dof)).astype(np.float32)
+        ok = rsc.validate(world, torch.as_tensor(cand, device=DEV)).cpu().numpy()
+        pool.append(cand[ok])
+        got += int(ok.sum())
+    q_goal = torch.as_tensor(np.concatenate(pool)[:N_GOALS], device=DEV)
+    st = kin.compute_kinematics(q_goal)
+    return ct.Pose(st.tool_pose.position, st.tool_pose.quaternion)
+
+
+def dual_setup():
+    """The dual-arm robot, world, goals and solver, and the kernel inputs of
+    one solve: the (N, 14) goal block, the Halton seeds and the LM-refined
+    seeds the kernel is given (N = 100 goals x 32 seeds)."""
+    kin = ct.Kinematics.from_robot_yaml(ct.robot_config_path("dual_ur10e"))
+    world = ct.compile_scene(dual_scene())
+    goals = dual_goals(kin, world)
+    cfg = dual_ik_config()
+    solver = ct.IKSolver(kin.params, cfg)
+    D, T = kin.n_dof, kin.params.n_tools
+    N = N_GOALS * N_SEEDS
+    seeds = solver.generate_seeds(N_GOALS, kin.params.retract_config)
+    goal_s = ct.Goal.from_pose(goals).tile_seeds(N_SEEDS)
+    lm_seeds, _ = solver._lm_warm_start(goal_s, seeds)
+    goal7 = torch.cat([goal_s.goal_pos[..., 0, :, :], goal_s.goal_quat[..., 0, :, :]], dim=-1)
+    return dict(kin=kin, world=world, goals=goals, cfg=cfg, solver=solver,
+                tab=solver._ik_cost.tables, wt=ikk.pack_world_arrays(world),
+                goal7=goal7.reshape(N, 7 * T).contiguous(), goal_s=goal_s, seeds=seeds,
+                seeds_flat=seeds.reshape(N, D).contiguous(),
+                lm_flat=lm_seeds.reshape(N, D).contiguous(), N=N, D=D, T=T)
+
+
+def dual_phase(du, out_dir):
+    """Phase `dual`: `ik_cost_grad` and `ik_solve` at T = 2 against their plain
+    versions on 3200 configurations, then the main path
+    (`IKSolver.solve_pose` over the 100 goals x 32 seeds at the bench budget):
+    time per solve, the LM stage and the kernel apart, success, pose error,
+    launches, and a `torch.profiler` trace of one solve and of the LM stage
+    alone (busy share, kernels by name). Returns (summary, comparison numbers,
+    kernel times)."""
+    tab, wt, goal7, N, D = du["tab"], du["wt"], du["goal7"], du["N"], du["D"]
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    lo, hi = (torch.as_tensor(b, device=DEV) for b in du["kin"].params.dof_clip_bounds(np.pi))
+    q_rand = lo + (hi - lo) * torch.rand((N, D), generator=gen).to(DEV)
+    cg = [compare_cost_grad(tab, wt, goal7, du["seeds_flat"], "dual/seeds"),
+          compare_cost_grad(tab, wt, goal7, du["lm_flat"], "dual/lm-seeds"),
+          compare_cost_grad(tab, wt, goal7, q_rand, "dual/random")]
+    shallow = ikk.IKSolveBudget(mppi_iters=0, lbfgs_iters=3, history=4, n_linesearch=2,
+                                warmup_iters=4, warmup_history=6)
+    bench_b = budget_of(du["cfg"])
+    sv_shallow, _ = compare_solve(tab, wt, goal7, du["lm_flat"], shallow, "dual/shallow")
+    sv_rand, _ = compare_solve(tab, wt, goal7, q_rand, shallow, "dual/shallow/random")
+    sv_bench, _ = compare_solve(tab, wt, goal7, du["lm_flat"], bench_b, "dual/bench-budget",
+                                strict=False)
+
+    ms_cg = time_ms(lambda: ikk.ik_cost_grad(tab, wt, goal7, du["seeds_flat"], True), reps=20, warm=2)
+    plain_cg = time_ms(lambda: ikk.ik_cost_grad_plain(tab, wt, goal7, du["seeds_flat"], True), reps=5)
+    ms_sv = time_ms(lambda: ikk.ik_solve(tab, wt, goal7, du["lm_flat"], bench_b, 0, None), reps=10)
+
+    # ---- the main path: IKSolver.solve_pose, 100 goals x 32 seeds ------------------------
+    slv, world, goals, kin = du["solver"], du["world"], du["goals"], du["kin"]
+    seed_state = kin.params.retract_config
+    res = slv.solve_pose(world, goals, seed_state=seed_state)  # warm-up solve
+    torch.cuda.synchronize()
+    reps = 10
+    reset_counts()
+    times = []
+    for i in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = slv.solve_pose(world, goals, seed=i, seed_state=seed_state)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    launches = counts()
+    if launches["ik_solve"] != reps or launches["ik_cost_grad"] != 0:
+        fail(f"dual: {reps} solves launched {launches} (one ik_solve each, no ik_cost_grad)")
+    # the LM stage and the kernel apart, the device synchronised between them
+    lm_t, k_t = [], []
+    for i in range(reps):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        e[0].record()
+        lm_seeds, _ = slv._lm_warm_start(du["goal_s"], du["seeds"])
+        e[1].record()
+        torch.cuda.synchronize()
+        e[2].record()
+        slv._solve_kernel(goal7, lm_seeds.reshape(N, D).contiguous(), i, world)
+        e[3].record()
+        torch.cuda.synchronize()
+        lm_t.append(e[0].elapsed_time(e[1]))
+        k_t.append(e[2].elapsed_time(e[3]))
+    # where a solve's time goes: one traced solve, and the LM stage alone
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("dual_solve"):
+            slv.solve_pose(world, goals, seed=0, seed_state=seed_state).solution.cpu()
+        with record_function("dual_lm"):
+            slv._lm_warm_start(du["goal_s"], du["seeds"])[0].cpu()
+    path = os.path.join(out_dir, "dual_trace.json")
+    prof.export_chrome_trace(path)
+    trace = dict(trace=path, solve=trace_busy(path, "dual_solve", 1),
+                 lm=trace_busy(path, "dual_lm", 1))
+    for name in ("solution", "position_error", "rotation_error", "cost", "seed_solutions"):
+        if not torch.isfinite(getattr(res, name)).all():
+            fail(f"dual: IKResult.{name} has non-finite values")
+    if res.solution.shape != (N_GOALS, D) or res.seed_solutions.shape != (N_GOALS, N_SEEDS, D):
+        fail("dual: unexpected result shapes")
+    # the repo's own check: FK of a successful solution reaches both tools'
+    # goals, and the objective kernel gives the reported cost
+    st = kin.compute_kinematics(res.solution)
+    fk_err = (st.tool_pose.position - goals.position).norm(dim=-1).amax(dim=-1)
+    ok = res.success
+    if bool(ok.any()) and float(fk_err[ok].max()) > 0.005 + 1e-4:
+        fail(f"dual: FK of a successful solution misses a goal by {float(fk_err[ok].max())}")
+    g7 = torch.cat([goals.position, goals.quaternion], dim=-1).reshape(N_GOALS, 7 * du["T"])
+    c_chk, _ = slv._ik_cost(g7.contiguous(), res.solution.contiguous(), world)
+    torch.cuda.synchronize()
+    c_rel = float(((c_chk - res.cost).abs() / (res.cost.abs() + 1e-2)).max())
+    if c_rel > 1e-3:
+        fail(f"dual: reported cost differs from ik_cost_grad on the solution by {c_rel}")
+    sr = float(ok.float().mean())
+    pe = res.position_error.double().cpu().numpy()
+    summary = dict(
+        phase="dual", robot="dual_ur10e", tools=du["T"], dof=D, links=tab.L, spheres=tab.S,
+        live_pairs=tab.P, goals=N_GOALS, seeds=N_SEEDS,
+        budget="LM seed 12, warm-up 32, no MPPI, L-BFGS 24 x history 10, line search 6",
+        success_rate=sr, position_error_mm_p90=float(np.percentile(pe, 90) * 1e3),
+        median_rotation_error=float(res.rotation_error.median()),
+        ms_per_solve=statistics.median(times), ms_per_solve_min=min(times),
+        lm_ms=statistics.median(lm_t), lm_ms_min=min(lm_t),
+        kernel_ms=statistics.median(k_t), kernel_ms_min=min(k_t),
+        solves=reps, launches_per_solve={k: v / reps for k, v in launches.items()},
+        cost_check_rel_max=c_rel, profile=trace, gpu=gpu_line(),
+    )
+    if sr < 0.95:
+        fail(f"dual-arm success rate {sr} is under 0.95: {summary}")
+    cmp = dict(ik_cost_grad=cg, ik_solve=[sv_shallow, sv_rand, sv_bench])
+    timing = dict(ms_cg=ms_cg, plain_cg=plain_cg, ms_sv=ms_sv, plain_sv=sv_bench["plain_ms"],
+                  bench_b=bench_b, launches=launches, sv_bench=sv_bench,
+                  max_abs_err_cg=max(c["max_abs_err"] for c in cg),
+                  max_abs_err_sv=max(c["max_abs_err_x"] for c in (sv_shallow, sv_rand)))
+    return summary, cmp, timing
 
 
 # ---------------------------------------------------------------------------
@@ -1342,8 +1530,9 @@ def run(quick, t_start, out_dir):
     g32 = in4[0][:1].expand(N_SEEDS, 7).contiguous()
     s32 = solver.generate_seeds(1, in4[2][:1]).reshape(N_SEEDS, D).contiguous()
     ms_ik32 = time_ms(lambda: ikk.ik_solve(tab, wt0, g32, s32, default_b, 0, None), reps=5)
+    du = dual_setup()
     emit(dict(phase="determinism", **determinism(tab, wt0, g32, s32, default_b, tt, wt0, in4,
-                                                  traj_b)))
+                                                  traj_b, du)))
 
     # ---- main path, twice: bench budget and the default IKConfig ----------------------
     ikk.ik_solve.launches = 0
@@ -1403,6 +1592,13 @@ def run(quick, t_start, out_dir):
     if launches["ik_solve"] != n_solves or launches["ik_cost_grad"] < 1:
         fail(f"main path did not go through the kernels: {launches}")
 
+    # ---- dual-arm IK (two tool frames) on the kernel route, with the LM seed stage ------
+    dual, dual_cmp, dual_t = dual_phase(du, out_dir)
+    emit(dict(phase="dual_compare", limits=dict(
+        cost_rel_median=COST_MED, cost_rel_p99=COST_P99, loop_cost_rel_median=LOOP_COST_MED,
+        loop_x_agree_frac=LOOP_X_FRAC, loop_x_tol=LOOP_X_TOL), **dual_cmp))
+    emit(dual)
+
     # ---- main path of motion generation: MotionPlanner.plan_pose over the suite ------
     plan, plan_launches, planner = plan_phase(kin, suite, t_start)
     # kernel time of a first attempt (one ik_solve, two traj_solve, one check)
@@ -1435,6 +1631,24 @@ def run(quick, t_start, out_dir):
     b_ik32 = bound_ms(f32, 32 * ((7 + D) + (D + 4)) * 4)[0]
     blocks = lambda n: -(-n // IK_WARPS)
     lh = tcmp["long_horizon"]
+    # the dual-arm shape: N = 3200 configurations, 12 dof, goals of 2 tool frames
+    dtab, dwt, dN, dD, dT = du["tab"], du["wt"], du["N"], du["D"], du["T"]
+    dual_shape = (f"N={dN} D={dD} T={dT} dual_ur10e table, {dtab.S} spheres, {dtab.P} live pairs")
+    f_cg_d = dN * eval_flops(dtab, dwt, True, False)
+    f_sv_d = dN * solve_flops(dtab, dwt, dual_t["bench_b"])
+    b_cg_d = bound_ms(f_cg_d, dN * (7 * dT + dD) * 4 + dN * (1 + dD) * 4)
+    b_sv_d = bound_ms(f_sv_d, dN * (7 * dT + dD) * 4 + dN * (dD + 4) * 4)
+    dual_cg_fields = dict(
+        shape_dual=dual_shape, ms_dual=dual_t["ms_cg"], plain_ms_dual=dual_t["plain_cg"],
+        bound_ms_dual=b_cg_d[0], bound_by_dual=b_cg_d[1], sm_floor_ms_dual=sm_floor_ms(f_cg_d, blocks(dN)),
+        launches_dual_phase=dual_t["launches"]["ik_cost_grad"],
+        max_abs_err_dual=dual_t["max_abs_err_cg"], rel_err_dual=dual_cmp["ik_cost_grad"][0])
+    dual_sv_fields = dict(
+        shape_dual=dual_shape + ", bench budget (LM-refined seeds)", ms_dual=dual_t["ms_sv"],
+        plain_ms_dual=dual_t["plain_sv"], bound_ms_dual=b_sv_d[0], bound_by_dual=b_sv_d[1],
+        sm_floor_ms_dual=sm_floor_ms(f_sv_d, blocks(dN)),
+        launches_dual_phase=dual_t["launches"]["ik_solve"], max_abs_err_dual=dual_t["max_abs_err_sv"],
+        bench_budget_agreement_dual=dual_t["sv_bench"])
     kernels = [
         dict(name="ik_cost_grad", route="cuda",
              source="curobo_tpu_torch/ops/csrc/ik_kernels.cu",
@@ -1447,6 +1661,7 @@ def run(quick, t_start, out_dir):
              shape=f"N={N} D={D} franka table", rel_err=cg[0],
              also_replaces=["curobo_tpu/ops/pallas_ik.py:865"],
              sm_floor_ms=sm_floor_ms(N * eval_flops(tab, wt, True, False), blocks(N)),
+             **dual_cg_fields,
              ptxas=ptxas_of(ptx["ik_kernels"], "ik_cost_grad_kernel")),
         dict(name="ik_solve", route="cuda",
              source="curobo_tpu_torch/ops/csrc/ik_kernels.cu",
@@ -1473,6 +1688,7 @@ def run(quick, t_start, out_dir):
              sm_floor_ms=sm_floor_ms(N * solve_flops(tab, wt, bench_b), blocks(N)),
              sm_floor_ms_default_budget=sm_floor_ms(N * solve_flops(tab, wt, default_b), blocks(N)),
              bound_ms_plan_shape=b_ik32, sm_floor_ms_plan_shape=sm_floor_ms(f32, blocks(32)),
+             **dual_sv_fields,
              ptxas=ptxas_of(ptx["ik_kernels"], "ik_solve_kernel")),
         dict(name="traj_cost_grad", route="cuda",
              source="curobo_tpu_torch/ops/csrc/traj_kernels.cu",
@@ -1521,7 +1737,7 @@ def run(quick, t_start, out_dir):
     ]
     emit(dict(phase="compare_summary", env={k: env[k] for k in ("torch", "cuda", "python")},
               build_seconds=secs, cases=brief_cases(
-                  [cmp, tcmp, mpc_cmp, full_bench, full_inj, full_traj], []),
+                  [cmp, tcmp, mpc_cmp, full_bench, full_inj, full_traj, dual_cmp], []),
               full_output="chiprun_out/chip_smoke.jsonl"))
     emit(dict(quoted_not_measured="kernel ms of the one-thread-per-evaluation design, "
                                   "PERF.md, PR 2 (NVIDIA H100 80GB HBM3, 700 W)",

@@ -8,8 +8,10 @@ trajectory optimization -> interpolation; `MPCSolver.step` / `run_ticks`),
 with the fused IK and trajectory kernels written by hand in CUDA C++
 (`ops/ik_kernels.py`, `ops/traj_kernels.py`, `ops/csrc/`) and a generic
 objective in plain PyTorch for what the kernels do not take (goal sets,
-c-space goals, per-tool criteria). Entry points run on the CUDA device unless
-the caller passes ``device="cpu"``.
+c-space goals, per-tool criteria). IK serves robots with several tool frames
+(the dual-arm UR10e) on the kernel route, with an optional Levenberg-Marquardt
+seed stage (`SeedIK`). Entry points run on the CUDA device unless the caller
+passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -51,6 +53,7 @@ from curobo_tpu_torch.motion.planner import MotionPlanConfig, MotionPlanner, Mot
 from curobo_tpu_torch.motion.batch_planner import BatchMotionPlanner
 from curobo_tpu_torch.solver.mpc import MPCConfig, MPCResult, MPCSolver, MPCState
 from curobo_tpu_torch.graph.prm import PRMConfig, PRMGraphPlanner
+from curobo_tpu_torch.opt.lm import LMConfig, SeedIK
 
 # Collision convenience
 from curobo_tpu_torch.collision.robot_scene import RobotSceneCollision

@@ -26,7 +26,12 @@
 //     place;
 //   - sphere -> link wrenches: lane l owns links l, l + 32, ..., walking the
 //     link's sphere list;
-//   - FK reverse: a serial sweep over the links on lane 0;
+//   - pose error: every lane computes each tool frame's error (IK: 1..IK_MAXT
+//     frames, summed; the trajectory kernels: rb.tool[0] only); lane 0 keeps
+//     the per-tool terms of the gradient in the warp's goal slot;
+//   - FK reverse: a serial sweep over the links on lane 0 (links are numbered
+//     parents first, so one sweep from the last link down reaches every
+//     branch of a tree such as the dual arm's);
 //   - cost and metric sums: warp shuffles in a fixed order.
 // Every sum runs in a fixed order and there are no atomics, so a launch gives
 // the same bits every time (the planner's "same seed -> same plan").
@@ -44,7 +49,13 @@
 #include <stdint.h>
 
 #define IK_MAXD 16         // most degrees of freedom (lane d owns dof d)
+#define IK_MAXT 4          // most tool frames of an IK goal (IK_MAXT in ops/ik_kernels.py)
 #define IK_FULL 0xffffffffu
+// An IK warp's goal slot in shared memory: the goal, 7 words per tool frame
+// (position, quaternion), then IK_TERR_WORDS of scratch for the per-tool pose
+// errors that the gradient pass reads (ik_eval).
+#define IK_GOAL_WORDS (((7 * IK_MAXT) + 3) & ~3)
+#define IK_TERR_WORDS (6 * IK_MAXT)
 
 // ---- tables (mirrored by ctypes structures in ops/ik_kernels.py) ----------
 struct IKRobot {
@@ -59,7 +70,9 @@ struct IKRobot {
   const int* lsph;      // (n_lsph,) sphere indices, ascending within a link
   const float* dof_f;   // (D, 6)  lim_lo, lim_hi, clip_lo, clip_hi, retract, null_w
   const float* cfg_f;   // (8,)    pos_w, rot_w, bound_w, null_space_w, sc_w, sc_act, coll_w, coll_act
-  int L, S, P, D, n_lsph, tool;
+  int L, S, P, D, n_lsph;
+  int n_tools;          // 1..IK_MAXT; the trajectory kernels take tool[0] only
+  int tool[IK_MAXT];    // link index of each tool frame, in goal order
 };
 
 struct IKWorld {
@@ -619,43 +632,82 @@ __device__ __forceinline__ float ik_sphere_terms(const IKRobot& rb, const IKWorl
   return part;
 }
 
-// Per-link force and torque (about the world origin): lane l owns links l,
-// l + 32, ...; the tool link starts from the cotangent of
-// pos_w * pe2 + rot_w * re2 when `tool_on` (a force on the tool origin and a
-// pure torque), then every link adds the cotangents of its live spheres in
-// sphere order (when `spheres`).
+// The force and torque (about the world origin) on a tool link from the
+// cotangent of pos_w * pe2 + rot_w * re2: a force on the tool origin and a pure
+// torque; (dx, dy, dz) is goal - tool, e the rotation vector of the error.
+__device__ __forceinline__ void ik_tool_wrench(const float* Rt, const float* tp, float pos_w,
+                                               float rot_w, float dx, float dy, float dz,
+                                               float ex, float ey, float ez, float* W) {
+  const float F0 = -2.0f * pos_w * dx, F1 = -2.0f * pos_w * dy, F2 = -2.0f * pos_w * dz;
+  const float k = 2.0f * rot_w;
+  const float tx = k * (Rt[0] * ex + Rt[1] * ey + Rt[2] * ez);
+  const float ty = k * (Rt[3] * ex + Rt[4] * ey + Rt[5] * ez);
+  const float tz = k * (Rt[6] * ex + Rt[7] * ey + Rt[8] * ez);
+  W[0] = F0; W[1] = F1; W[2] = F2;
+  W[3] = tx + tp[1] * F2 - tp[2] * F1;
+  W[4] = ty + tp[2] * F0 - tp[0] * F2;
+  W[5] = tz + tp[0] * F1 - tp[1] * F0;
+}
+
+// Adds the cotangents of link l's live spheres, in sphere order, to its force
+// F and torque T.
+__device__ __forceinline__ void ik_sphere_wrench(const IKRobot& rb, const float* st,
+                                                 const IKLayout& o, int l, float* W) {
+  for (int k = rb.lsph_off[l]; k < rb.lsph_off[l + 1]; ++k) {
+    const int si = rb.lsph[k];
+    float fx = st[o.oG + 3 * si], fy = st[o.oG + 3 * si + 1], fz = st[o.oG + 3 * si + 2];
+    if (fx == 0.0f && fy == 0.0f && fz == 0.0f) continue;
+    float cx = st[o.oC + 3 * si], cy = st[o.oC + 3 * si + 1], cz = st[o.oC + 3 * si + 2];
+    W[0] += fx; W[1] += fy; W[2] += fz;
+    W[3] += cy * fz - cz * fy;
+    W[4] += cz * fx - cx * fz;
+    W[5] += cx * fy - cy * fx;
+  }
+}
+
+__device__ __forceinline__ void ik_store_wrench(float* st, const IKLayout& o, int l,
+                                                const float* W) {
+  st[o.oF + 3 * l] = W[0]; st[o.oF + 3 * l + 1] = W[1]; st[o.oF + 3 * l + 2] = W[2];
+  st[o.oT + 3 * l] = W[3]; st[o.oT + 3 * l + 1] = W[4]; st[o.oT + 3 * l + 2] = W[5];
+}
+
+// Per-link force and torque (about the world origin) for one tool frame,
+// rb.tool[0] (the trajectory kernels): lane l owns links l, l + 32, ...; the
+// tool link starts from the pose error's cotangent when `tool_on`, then every
+// link adds the cotangents of its live spheres (when `spheres`).
 __device__ __forceinline__ void ik_wrenches(const IKRobot& rb, float* st, const IKLayout& o,
                                             bool tool_on, float pos_w, float rot_w,
                                             const IKPoseErr& e, bool spheres) {
   for (int l = ik_lane(); l < rb.L; l += 32) {
-    float F0 = 0.0f, F1 = 0.0f, F2 = 0.0f, T0 = 0.0f, T1 = 0.0f, T2 = 0.0f;
-    if (tool_on && l == rb.tool) {
-      const float* Rt = st + o.oR + 9 * l;
-      const float* tp = st + o.oP + 3 * l;
-      F0 = -2.0f * pos_w * e.dx; F1 = -2.0f * pos_w * e.dy; F2 = -2.0f * pos_w * e.dz;
-      float ex = e.rx * e.scale, ey = e.ry * e.scale, ez = e.rz * e.scale;
-      float k = 2.0f * rot_w;
-      float tx = k * (Rt[0] * ex + Rt[1] * ey + Rt[2] * ez);
-      float ty = k * (Rt[3] * ex + Rt[4] * ey + Rt[5] * ez);
-      float tz = k * (Rt[6] * ex + Rt[7] * ey + Rt[8] * ez);
-      T0 = tx + tp[1] * F2 - tp[2] * F1;
-      T1 = ty + tp[2] * F0 - tp[0] * F2;
-      T2 = tz + tp[0] * F1 - tp[1] * F0;
+    float W[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (tool_on && l == rb.tool[0])
+      ik_tool_wrench(st + o.oR + 9 * l, st + o.oP + 3 * l, pos_w, rot_w, e.dx, e.dy, e.dz,
+                     e.rx * e.scale, e.ry * e.scale, e.rz * e.scale, W);
+    if (spheres) ik_sphere_wrench(rb, st, o, l, W);
+    ik_store_wrench(st, o, l, W);
+  }
+  __syncwarp();
+}
+
+// The same over all rb.n_tools tool frames (the IK kernels): tool t's error is
+// (dx, dy, dz, ex, ey, ez) at terr[6 t]; a link that carries several tool
+// frames adds their wrenches in tool order.
+__device__ __forceinline__ void ik_wrenches_tools(const IKRobot& rb, float* st, const IKLayout& o,
+                                                  const float* terr, float pos_w, float rot_w,
+                                                  bool spheres) {
+  for (int l = ik_lane(); l < rb.L; l += 32) {
+    float W[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int t = 0; t < rb.n_tools; ++t) {
+      if (rb.tool[t] != l) continue;
+      const float* e = terr + 6 * t;
+      float Wt[6];
+      ik_tool_wrench(st + o.oR + 9 * l, st + o.oP + 3 * l, pos_w, rot_w, e[0], e[1], e[2],
+                     e[3], e[4], e[5], Wt);
+#pragma unroll
+      for (int a = 0; a < 6; ++a) W[a] += Wt[a];
     }
-    if (spheres) {
-      for (int k = rb.lsph_off[l]; k < rb.lsph_off[l + 1]; ++k) {
-        const int si = rb.lsph[k];
-        float fx = st[o.oG + 3 * si], fy = st[o.oG + 3 * si + 1], fz = st[o.oG + 3 * si + 2];
-        if (fx == 0.0f && fy == 0.0f && fz == 0.0f) continue;
-        float cx = st[o.oC + 3 * si], cy = st[o.oC + 3 * si + 1], cz = st[o.oC + 3 * si + 2];
-        F0 += fx; F1 += fy; F2 += fz;
-        T0 += cy * fz - cz * fy;
-        T1 += cz * fx - cx * fz;
-        T2 += cx * fy - cy * fx;
-      }
-    }
-    st[o.oF + 3 * l] = F0; st[o.oF + 3 * l + 1] = F1; st[o.oF + 3 * l + 2] = F2;
-    st[o.oT + 3 * l] = T0; st[o.oT + 3 * l + 1] = T1; st[o.oT + 3 * l + 2] = T2;
+    if (spheres) ik_sphere_wrench(rb, st, o, l, W);
+    ik_store_wrench(st, o, l, W);
   }
   __syncwarp();
 }
@@ -702,11 +754,13 @@ __device__ __forceinline__ void ik_fk_reverse(const IKRobot& rb, float* st, cons
 // joint-limit and null-space penalties, self-collision hinge, scene penalty;
 // with IK_WANT_GRAD its gradient by the hand-written reverse pass; with
 // IK_METRICS the raw quantities of the feasibility test. Lane d < D holds x_d
-// and receives g_d; `goal` is 7 words of shared memory. Returns the cost on
-// every lane.
+// and receives g_d; `goal` is the warp's goal slot in shared memory: 7 words
+// per tool frame, then (at goal + IK_GOAL_WORDS) the per-tool error scratch.
+// The pose cost is summed over the tool frames and the metrics keep each
+// error's largest value over them. Returns the cost on every lane.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float ik_eval(const IKRobot& rb, const IKWorld& w, float* st,
-                                      const float* goal, float x, float& g, int flags,
+                                      float* goal, float x, float& g, int flags,
                                       IKMetrics* met) {
   const bool want_grad = (flags & IK_WANT_GRAD) != 0;
   const bool pose_only = (flags & IK_POSE_ONLY) != 0;
@@ -719,7 +773,22 @@ __device__ __forceinline__ float ik_eval(const IKRobot& rb, const IKWorld& w, fl
   if (lane < D) st[o.oQ + lane] = x;
   __syncwarp();
   ik_fk_forward(rb, st, o);
-  const IKPoseErr pe = ik_pose_error(goal, st + o.oR + 9 * rb.tool, st + o.oP + 3 * rb.tool);
+  // pose error of every tool frame: the cost sums them, the metrics keep the
+  // largest, the gradient pass reads each tool's (d, e) from shared memory
+  float* terr = goal + IK_GOAL_WORDS;
+  float cpose = 0.0f, pe2_max = 0.0f, re2_max = 0.0f;
+  for (int t = 0; t < rb.n_tools; ++t) {
+    const int tl = rb.tool[t];
+    const IKPoseErr pe = ik_pose_error(goal + 7 * t, st + o.oR + 9 * tl, st + o.oP + 3 * tl);
+    cpose += pos_w * pe.pe2 + rot_w * pe.re2;
+    pe2_max = fmaxf(pe2_max, pe.pe2);
+    re2_max = fmaxf(re2_max, pe.re2);
+    if (want_grad && lane == 0) {
+      float* e = terr + 6 * t;
+      e[0] = pe.dx; e[1] = pe.dy; e[2] = pe.dz;
+      e[3] = pe.rx * pe.scale; e[4] = pe.ry * pe.scale; e[5] = pe.rz * pe.scale;
+    }
+  }
 
   // ---- joint limits + null space: lane d, dof d -------------------------------
   float part = 0.0f, gd = 0.0f;
@@ -742,17 +811,17 @@ __device__ __forceinline__ float ik_eval(const IKRobot& rb, const IKWorld& w, fl
     part += ik_sphere_terms(rb, w, st, o, 0, 1, false, want_grad, -1, metrics, self_viol,
                             min_clear);
   }
-  const float cost = pos_w * pe.pe2 + rot_w * pe.re2 + ik_warp_sum(part);
+  const float cost = cpose + ik_warp_sum(part);
 
   if (want_grad) {
     if (lane < D) st[o.oGQ + lane] = gd;
     __syncwarp();
-    ik_wrenches(rb, st, o, true, pos_w, rot_w, pe, !pose_only);
+    ik_wrenches_tools(rb, st, o, terr, pos_w, rot_w, !pose_only);
     ik_fk_reverse(rb, st, o, st + o.oGQ);
     g = (lane < D) ? st[o.oGQ + lane] : 0.0f;
   }
   if (metrics) {
-    met->pe2 = pe.pe2; met->re2 = pe.re2;
+    met->pe2 = pe2_max; met->re2 = re2_max;
     met->self_viol = ik_warp_max(self_viol);
     met->min_clear = ik_warp_min(min_clear);
   }
@@ -777,7 +846,7 @@ __device__ __forceinline__ float ik_clip(const IKRobot& rb, float x) {
 __host__ __device__ inline int ik_hist_words(int m, int D) { return 2 * m * D + 3 * m; }
 
 __device__ __forceinline__ float ik_lbfgs(const IKRobot& rb, const IKWorld& w, float* st,
-                                       float* hist, const float* goal, float& x, int mode,
+                                       float* hist, float* goal, float& x, int mode,
                                        int n_iters, int m, float max_step, int n_ls,
                                        float ls_base, float ls_log_ratio) {
   const int D = rb.D, lane = ik_lane();
@@ -905,7 +974,7 @@ __device__ __forceinline__ float ik_normal(unsigned int k0, unsigned int k1, int
 // particles, N, D) used instead of Philox.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float ik_mppi(const IKRobot& rb, const IKWorld& w, float* st,
-                                      const float* goal, float& x, const IKSolveCfg& cfg,
+                                      float* goal, float& x, const IKSolveCfg& cfg,
                                       const float* noise, int n, int N) {
   const int D = rb.D, lane = ik_lane();
   const bool act = lane < D;

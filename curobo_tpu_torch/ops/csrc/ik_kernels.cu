@@ -2,6 +2,9 @@
 //
 // ik_cost_grad: replaces PallasIKCost._build -> kernel_grad / kernel_fwd
 //   (curobo_tpu/ops/pallas_ik.py): cost (N,) and, when asked, grad (N, D).
+// Both take goals of 1..IK_MAXT tool frames, (N, 7 T): each tool's position
+//   and quaternion in turn (the TPU kernel's `_pack` layout); the pose cost is
+//   summed over the tools and the metrics keep the largest error.
 // ik_solve: replaces PallasIKCost.build_solver / build_mppi_solver /
 //   build_lbfgs_solver: a whole solve per configuration in one launch, pose-only
 //   L-BFGS warm-up -> optional MPPI -> full-cost L-BFGS -> metrics. With the
@@ -32,8 +35,9 @@
 #define IK_WARPS 4
 #define IK_MIN_BLOCKS 4
 
+// evaluation state, goal slot (goal and per-tool error scratch), L-BFGS history
 __host__ __device__ inline int ik_warp_words(int L, int S, int hist) {
-  return ik_layout(L, S).words + 8 + hist;  // evaluation state, goal, L-BFGS history
+  return ik_layout(L, S).words + IK_GOAL_WORDS + IK_TERR_WORDS + hist;
 }
 
 __global__ void __launch_bounds__(32 * IK_WARPS, IK_MIN_BLOCKS)
@@ -49,7 +53,8 @@ ik_cost_grad_kernel(IKRobot rbg, IKWorld wg, const float* wglob, const float* __
   if (n >= N) return;
   float* st = base + warp * ik_warp_words(rb.L, rb.S, 0);
   float* goal = st + ik_layout(rb.L, rb.S).words;
-  if (lane < 7) goal[lane] = goal7[(size_t)n * 7 + lane];
+  const int G = 7 * rb.n_tools;
+  if (lane < G) goal[lane] = goal7[(size_t)n * G + lane];
   __syncwarp();
   const float x = lane < rb.D ? q[(size_t)n * rb.D + lane] : 0.0f;
   float g = 0.0f;
@@ -74,8 +79,9 @@ ik_solve_kernel(IKRobot rbg, IKWorld wg, const float* wglob, IKSolveCfg cfg,
   const int D = rb.D;
   float* st = base + warp * ik_warp_words(rb.L, rb.S, ik_hist_words(hist_m, D));
   float* goal = st + ik_layout(rb.L, rb.S).words;
-  float* hist = goal + 8;
-  if (lane < 7) goal[lane] = goal7[(size_t)n * 7 + lane];
+  float* hist = goal + IK_GOAL_WORDS + IK_TERR_WORDS;
+  const int G = 7 * rb.n_tools;
+  if (lane < G) goal[lane] = goal7[(size_t)n * G + lane];
   __syncwarp();
   const float ls_log_ratio = logf(cfg.ls_ratio);
   float x = lane < D ? x0[(size_t)n * D + lane] : 0.0f;

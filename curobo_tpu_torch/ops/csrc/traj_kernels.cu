@@ -229,7 +229,7 @@ __device__ __noinline__ float traj_eval(const IKRobot& rb, const IKWorld& w, con
       float pe2 = 0.0f, re2 = 0.0f;
       if (is_term || tc.run_w != 0.0f) {
         const float wpose = is_term ? 1.0f : tc.run_w;
-        const IKPoseErr pe = ik_pose_error(sh.goal, st + o.oR + 9 * rb.tool, st + o.oP + 3 * rb.tool);
+        const IKPoseErr pe = ik_pose_error(sh.goal, st + o.oR + 9 * rb.tool[0], st + o.oP + 3 * rb.tool[0]);
         pe2 = pe.pe2;
         re2 = pe.re2;
         cpose = (pos_w * pe2 + rot_w * re2) * wpose;
@@ -316,7 +316,7 @@ __device__ __noinline__ float traj_eval(const IKRobot& rb, const IKWorld& w, con
       const bool pose_on = is_term || tc.run_w != 0.0f;
       const float wpose = is_term ? 1.0f : tc.run_w;
       IKPoseErr pe = {};
-      if (pose_on) pe = ik_pose_error(sh.goal, st + o.oR + 9 * rb.tool, st + o.oP + 3 * rb.tool);
+      if (pose_on) pe = ik_pose_error(sh.goal, st + o.oR + 9 * rb.tool[0], st + o.oP + 3 * rb.tool[0]);
       ik_wrenches(rb, st, o, pose_on, pos_w * wpose, rot_w * wpose, pe, true);
       ik_fk_reverse(rb, st, o, sh.gbuf + h * 4 * D);
     }

@@ -26,6 +26,11 @@ builds the lists the lanes walk in a fixed order (`IKTables.sph_pair_*`,
 `link_sph*`), so there are no atomics and a launch gives the same bits every
 time.
 
+Both serve 1 to `IK_MAXT` tool frames: the goal of a configuration is
+(7 T,), each tool's position and quaternion in turn; the pose cost is summed
+over the tools and the metrics take the largest error over them, as in the
+TPU kernel.
+
 Beside each kernel stands its plain PyTorch version (`ik_cost_grad_plain`,
 `ik_solve_plain`), taking the same arguments. A wrapper takes the plain
 version only for a tensor that lies on the CPU; for a CUDA tensor it launches
@@ -52,6 +57,10 @@ from curobo_tpu_torch.rollout.robot_rollout import RobotRolloutConfig
 
 BIG = 1.0e6
 _LIB_NAME = "ik_kernels"
+# Most tool frames a goal may have: IK_MAXT of ops/csrc/ik_device.cuh, which
+# sizes the `tool` array of `_CRobot` and the warp's goal slot (7 words per
+# tool); tests/test_torch_multitool.py holds the two equal.
+IK_MAXT = 4
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +212,7 @@ class IKTables:
     link_sph: torch.Tensor  # (live spheres,) int32, ascending within a link
     dof_f: torch.Tensor  # (D, 6)
     cfg_f: torch.Tensor  # (8,)
-    tool: int
+    tools: Tuple[int, ...]  # link index of each tool frame, in goal order
     # host copies of the small integer/weight tables, read by the plain
     # versions without a device round-trip
     link_host: Tuple[Tuple[int, int, int], ...] = ()
@@ -224,6 +233,10 @@ class IKTables:
     @property
     def D(self) -> int:
         return self.dof_f.shape[0]
+
+    @property
+    def T(self) -> int:
+        return len(self.tools)
 
     @property
     def device(self) -> torch.device:
@@ -264,10 +277,10 @@ def build_ik_tables(
     """Robot + cost configuration -> kernel tables on `device` (default: the
     device the robot parameters live on)."""
     device = params.device if device is None else torch.device(device)
-    if params.n_tools != 1:
+    if not 1 <= params.n_tools <= IK_MAXT:
         raise NotImplementedError(
-            f"IK kernels: {params.n_tools} tool frames; the multi-tool goal "
-            "layout is not verified in this package yet (single tool only)"
+            f"IK kernels: {params.n_tools} tool frames; the goal slot holds 1 to "
+            f"{IK_MAXT} (IK_MAXT)"
         )
     if not rollout_config_is_supported(cfg):
         raise NotImplementedError(
@@ -321,7 +334,7 @@ def build_ik_tables(
         link_i=t(link_i), link_f=t(link_f), sph_f=t(sph_f), sph_link=t(sph_link),
         pair_i=t(pair_i), pair_m=t(pair_m), sph_pair_off=t(sp_off), sph_pair_j=t(sp_j),
         sph_pair_m=t(sp_m), link_sph_off=t(ls_off), link_sph=t(ls), dof_f=t(dof_f), cfg_f=t(cfg_f),
-        tool=int(params.tool_frame_idx[0]),
+        tools=tuple(int(t) for t in params.tool_frame_idx),
         link_host=tuple(tuple(int(v) for v in row) for row in link_i),
         cfg_host=tuple(float(v) for v in cfg_f),
     )
@@ -459,22 +472,14 @@ def _scene_msdf_plain(world_tabs, pts: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts, dim=-1).min(dim=-1).values
 
 
-def _eval_plain(
-    tab: IKTables, world_tabs, goal7: torch.Tensor, q: torch.Tensor,
-    pose_only: bool = False, with_metrics: bool = False,
-):
-    """The IK objective on (N, D) configurations, index tensors for the pair
-    and sphere loops. Returns cost (N,), or (cost, pe2, re2, self_viol,
-    min_clear) with `with_metrics`."""
-    pos_w, rot_w, bound_w, null_w, sc_w, sc_act, coll_w, coll_act = tab.cfg_host
-    R, p = _fk_plain(tab, q)
-
-    # pose error of the tool frame
-    tp = p[:, tab.tool]
-    dp = goal7[:, 0:3] - tp
+def _pose_error_plain(goal: torch.Tensor, Rt: torch.Tensor, tp: torch.Tensor):
+    """Squared position and rotation errors (N,) of one tool frame (rotation
+    Rt (N, 3, 3), origin tp (N, 3)) against goals (N, 7); the rotation error is
+    the rotation vector of conj(goal) * tool."""
+    dp = goal[:, 0:3] - tp
     pe2 = (dp * dp).sum(dim=-1)
-    tq = _rot_to_quat_plain(R[:, tab.tool])
-    gw, gx, gy, gz = goal7[:, 3], goal7[:, 4], goal7[:, 5], goal7[:, 6]
+    tq = _rot_to_quat_plain(Rt)
+    gw, gx, gy, gz = goal[:, 3], goal[:, 4], goal[:, 5], goal[:, 6]
     tw, tx, ty, tz = tq[:, 0], tq[:, 1], tq[:, 2], tq[:, 3]
     rw = gw * tw + gx * tx + gy * ty + gz * tz
     rx = gw * tx - gx * tw - gy * tz + gz * ty
@@ -487,8 +492,30 @@ def _eval_plain(
     s = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))
     angle = 2.0 * torch.atan2(s, rw)
     scale = torch.where(small, torch.full_like(s, 2.0), angle / s)
-    re2 = s2 * scale * scale
-    cost = pos_w * pe2 + rot_w * re2
+    return pe2, s2 * scale * scale
+
+
+def _eval_plain(
+    tab: IKTables, world_tabs, goal7: torch.Tensor, q: torch.Tensor,
+    pose_only: bool = False, with_metrics: bool = False,
+):
+    """The IK objective on (N, D) configurations against goals (N, 7 T), index
+    tensors for the pair and sphere loops. The pose cost is summed over the
+    tool frames; the metrics take each error's maximum over them. Returns
+    cost (N,), or (cost, pe2, re2, self_viol, min_clear) with
+    `with_metrics`."""
+    pos_w, rot_w, bound_w, null_w, sc_w, sc_act, coll_w, coll_act = tab.cfg_host
+    R, p = _fk_plain(tab, q)
+
+    cost = pe2 = re2 = None
+    for t, link in enumerate(tab.tools):
+        pe2_t, re2_t = _pose_error_plain(goal7[:, 7 * t: 7 * t + 7], R[:, link], p[:, link])
+        c_t = pos_w * pe2_t + rot_w * re2_t
+        if cost is None:
+            cost, pe2, re2 = c_t, pe2_t, re2_t
+        else:
+            cost = cost + c_t
+            pe2, re2 = torch.maximum(pe2, pe2_t), torch.maximum(re2, re2_t)
 
     # joint limits + null space
     lo, hi = tab.dof_f[:, 0], tab.dof_f[:, 1]
@@ -759,7 +786,8 @@ class _CRobot(ctypes.Structure):
         ("lsph_off", ctypes.c_void_p), ("lsph", ctypes.c_void_p),
         ("dof_f", ctypes.c_void_p), ("cfg_f", ctypes.c_void_p),
         ("L", ctypes.c_int), ("S", ctypes.c_int), ("P", ctypes.c_int),
-        ("D", ctypes.c_int), ("n_lsph", ctypes.c_int), ("tool", ctypes.c_int),
+        ("D", ctypes.c_int), ("n_lsph", ctypes.c_int), ("n_tools", ctypes.c_int),
+        ("tool", ctypes.c_int * IK_MAXT),
     ]
 
 
@@ -816,8 +844,11 @@ def _lib():
 def _check_inputs(tab: IKTables, world_tabs, goal7: torch.Tensor, q: torch.Tensor):
     if q.ndim != 2 or q.shape[1] != tab.D:
         raise ValueError(f"q must have shape (N, {tab.D}), got {tuple(q.shape)}")
-    if goal7.shape != (q.shape[0], 7):
-        raise ValueError(f"goal7 must have shape ({q.shape[0]}, 7), got {tuple(goal7.shape)}")
+    if goal7.shape != (q.shape[0], 7 * tab.T):
+        raise ValueError(
+            f"goal7 must have shape ({q.shape[0]}, {7 * tab.T}) ({tab.T} tool frames), "
+            f"got {tuple(goal7.shape)}"
+        )
     widths = (16, 5, 8, 15)
     if len(world_tabs) != 4:
         raise ValueError("world tables: expected (cub, sph, cap, cyl)")
@@ -839,7 +870,8 @@ def _c_robot(tab: IKTables) -> _CRobot:
         tab.sph_link.data_ptr(), tab.sph_pair_off.data_ptr(), tab.sph_pair_j.data_ptr(),
         tab.sph_pair_m.data_ptr(), tab.link_sph_off.data_ptr(), tab.link_sph.data_ptr(),
         tab.dof_f.data_ptr(), tab.cfg_f.data_ptr(),
-        tab.L, tab.S, tab.P, tab.D, tab.link_sph.shape[0], tab.tool,
+        tab.L, tab.S, tab.P, tab.D, tab.link_sph.shape[0], tab.T,
+        (ctypes.c_int * IK_MAXT)(*tab.tools),
     )
 
 
@@ -871,7 +903,7 @@ def _cuda_guard(tab: IKTables, lib):
 def ik_cost_grad(
     tab: IKTables, world_tabs, goal7: torch.Tensor, q: torch.Tensor, want_grad: bool = True
 ):
-    """goal7 (N, 7), q (N, D) -> cost (N,), grad (N, D) (None unless asked).
+    """goal7 (N, 7 T), q (N, D) -> cost (N,), grad (N, D) (None unless asked).
     CUDA tensors go through the `ik_cost_grad` kernel, CPU tensors through
     `ik_cost_grad_plain`."""
     _check_inputs(tab, world_tabs, goal7, q)
@@ -918,7 +950,7 @@ def ik_solve(
     tab: IKTables, world_tabs, goal7: torch.Tensor, x0: torch.Tensor,
     budget: IKSolveBudget, seed: int = 0, noise: Optional[torch.Tensor] = None,
 ):
-    """A whole solve per configuration: goal7 (N, 7), x0 (N, D) ->
+    """A whole solve per configuration: goal7 (N, 7 T), x0 (N, D) ->
     (x (N, D), cost, pos_err, rot_err, feasible01 (N,)).
 
     `noise`, when given, is (mppi_iters, n_particles, N, D) standard normals
@@ -1007,7 +1039,8 @@ class IKCost:
     """Build once per (robot, cost config); call per solve with any world
     (obstacle capacities are launch arguments, nothing is rebuilt per world).
 
-    __call__(goal7 (N, 7), q (N, D), world) -> (cost (N,), grad (N, D)).
+    __call__(goal7 (N, 7 T), q (N, D), world) -> (cost (N,), grad (N, D)),
+    the goal holding each tool frame's [position, quaternion] in turn.
     """
 
     def __init__(self, params: KinematicsParams, cfg: RobotRolloutConfig, device=None):
@@ -1027,7 +1060,7 @@ class IKCost:
         return ik_cost_grad(self.tables, self._world_tabs(world), goal7, q, False)[0]
 
     def build_solver(self, **budget):
-        """solve(goal7 (N, 7), x0 (N, D), seed, world, noise=None) ->
+        """solve(goal7 (N, 7 T), x0 (N, D), seed, world, noise=None) ->
         (x (N, D), cost, pos_err, rot_err, feasible01): one launch."""
         b = IKSolveBudget(**budget)
         _check_budget(b)

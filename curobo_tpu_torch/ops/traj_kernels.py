@@ -121,6 +121,11 @@ def build_traj_tables(
         raise ValueError(f"horizon {H} exceeds the {MAX_HORIZON} steps one block holds")
     if H < 2:
         raise ValueError(f"horizon must be >= 2, got {H}")
+    if params.n_tools != 1:
+        raise NotImplementedError(
+            f"trajectory kernels: {params.n_tools} tool frames; the trajectory goal "
+            "is single-tool, as in the JAX package"
+        )
     if not traj_config_is_supported(cfg):
         raise NotImplementedError(
             "trajectory kernels: per-axis pose weights, the metric pose cost, a "
@@ -218,8 +223,8 @@ def _traj_eval_plain(tt: TrajTables, world_tabs, goal7, x, q_start, q_end, dt, m
 
     # pose: every step when the run weight is on, else the terminal step only
     steps = torch.arange(H, device=x.device) if run_w != 0.0 else torch.tensor([H - 1], device=x.device)
-    Rt = R[:, steps, tab.tool].reshape(-1, 3, 3)
-    tp = p[:, steps, tab.tool].reshape(-1, 3)
+    Rt = R[:, steps, tab.tools[0]].reshape(-1, 3, 3)
+    tp = p[:, steps, tab.tools[0]].reshape(-1, 3)
     g = goal7[:, None].expand(NP, len(steps), 7).reshape(-1, 7)
     dp = g[:, 0:3] - tp
     pe2 = (dp * dp).sum(dim=-1)

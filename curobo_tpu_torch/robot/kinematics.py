@@ -2,8 +2,8 @@
 
 Counterpart of `curobo_tpu/robot/kinematics.py`: all per-link local
 transforms are computed in one batch, then composed level by level down the
-tree. q is (..., n_dof) with arbitrary leading batch dims. The analytic
-Jacobian and the centre of mass wait for the slices that need them.
+tree. q is (..., n_dof) with arbitrary leading batch dims. The centre of
+mass waits for the slice that needs it.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from curobo_tpu_torch.robot.params import (
     JOINT_PRISMATIC,
     JOINT_REVOLUTE,
     KinematicsParams,
+    ancestor_mask,
+    dof_one_hot,
 )
 from curobo_tpu_torch.types.pose import Pose
 
@@ -116,19 +118,56 @@ def robot_spheres(
     return torch.cat([centers, radii[..., None]], dim=-1)
 
 
+@functools.lru_cache(maxsize=32)
+def _jacobian_tables(
+    tool_idx: Tuple[int, ...], parent_idx: Tuple[int, ...], dof_idx: Tuple[int, ...],
+    n_dof: int, device: torch.device,
+):
+    """(tool ancestor mask (T, L), one-hot dof routing (L, D)) on `device`,
+    built once per robot topology (no host copy per call)."""
+    return (
+        torch.as_tensor(ancestor_mask(tool_idx, parent_idx), device=device),
+        torch.as_tensor(dof_one_hot(dof_idx, n_dof), device=device),
+    )
+
+
+def analytic_jacobian(
+    params: KinematicsParams,
+    link_rot: torch.Tensor,
+    link_pos: torch.Tensor,
+    tool_pos: torch.Tensor,
+) -> torch.Tensor:
+    """Geometric Jacobians of all tool frames: (..., n_tools, 6, n_dof), rows
+    0:3 linear velocity, rows 3:6 angular velocity. Per-link contributions go
+    to dof columns through the routing matrix, which folds in the mimic
+    multipliers."""
+    _, rev, prism = _index_tables(params.dof_idx, params.joint_type, link_rot.device)
+    anc, onehot = _jacobian_tables(
+        params.tool_frame_idx, params.parent_idx, params.dof_idx, params.n_dof, link_rot.device
+    )
+    route = params.mimic_mult[:, None] * onehot  # params.dof_routing_matrix() on the device
+    axis_w = torch.einsum("...lij,lj->...li", link_rot, params.joint_axis)  # (..., L, 3)
+    # (..., T, L, 3): arm from each joint origin to each tool point
+    arm = tool_pos[..., :, None, :] - link_pos[..., None, :, :]
+    axis_b = axis_w[..., None, :, :].expand(arm.shape)
+    contrib_v = rev[:, None] * torch.linalg.cross(axis_b, arm, dim=-1) + (
+        prism[:, None] * axis_w
+    )[..., None, :, :]
+    contrib_w = (rev[:, None] * axis_w)[..., None, :, :].expand(contrib_v.shape)
+    Jv = torch.einsum("...tlk,tl,ld->...tkd", contrib_v, anc, route)
+    Jw = torch.einsum("...tlk,tl,ld->...tkd", contrib_w, anc, route)
+    return torch.cat([Jv, Jw], dim=-2)
+
+
 def compute_kinematics(
     params: KinematicsParams,
     q: torch.Tensor,
     compute_jacobian: bool = False,
 ) -> KinematicsState:
-    """Single public FK entry point."""
+    """Single public FK entry point; `compute_jacobian` adds the analytic
+    Jacobians of the tool frames."""
     from curobo_tpu_torch.util.checks import check_joint_config
 
-    if compute_jacobian:
-        raise NotImplementedError(
-            "compute_kinematics(compute_jacobian=True): the analytic Jacobian "
-            "is not ported yet"
-        )
     q = check_joint_config("q", q, params.n_dof)
     link_rot, link_pos = link_transforms(params, q)
     ti = list(params.tool_frame_idx)
@@ -136,8 +175,10 @@ def compute_kinematics(
     tool_p = link_pos[..., ti, :]
     tool_pose = Pose(tool_p, qm.matrix_to_quat(tool_R))
     spheres = robot_spheres(params, link_rot, link_pos)
+    jac = analytic_jacobian(params, link_rot, link_pos, tool_p) if compute_jacobian else None
     return KinematicsState(
-        link_rot=link_rot, link_pos=link_pos, tool_pose=tool_pose, spheres=spheres
+        link_rot=link_rot, link_pos=link_pos, tool_pose=tool_pose, spheres=spheres,
+        jacobian=jac,
     )
 
 

@@ -18,6 +18,26 @@ JOINT_REVOLUTE = 1
 JOINT_PRISMATIC = 2
 
 
+def ancestor_mask(tool_idx: Tuple[int, ...], parent_idx: Tuple[int, ...]) -> np.ndarray:
+    """(len(tool_idx), n_links): 1 where a link is on the chain from the root
+    to the tool link (both ends included)."""
+    mask = np.zeros((len(tool_idx), len(parent_idx)), dtype=np.float32)
+    for t, l in enumerate(tool_idx):
+        while l >= 0:
+            mask[t, l] = 1.0
+            l = parent_idx[l]
+    return mask
+
+
+def dof_one_hot(dof_idx: Tuple[int, ...], n_dof: int) -> np.ndarray:
+    """(n_links, n_dof): 1 at the dof that drives each link's joint."""
+    m = np.zeros((len(dof_idx), n_dof), dtype=np.float32)
+    for l, d in enumerate(dof_idx):
+        if d >= 0:
+            m[l, d] = 1.0
+    return m
+
+
 def _to(obj, device):
     """Copy of a dataclass with every tensor field moved to `device`."""
     changes = {}
@@ -153,6 +173,18 @@ class KinematicsParams:
         lo = np.where(ang, np.maximum(lo, -angular_cap), lo)
         hi = np.where(ang, np.minimum(hi, angular_cap), hi)
         return lo.astype(np.float32), hi.astype(np.float32)
+
+    def tool_ancestor_mask(self) -> np.ndarray:
+        """(n_tools, n_links) host mask: 1 where link l is on the chain from
+        the base to tool t (both ends included)."""
+        return ancestor_mask(self.tool_frame_idx, self.parent_idx)
+
+    def dof_routing_matrix(self) -> np.ndarray:
+        """(n_links, n_dof) host matrix, the mimic multiplier of link l's
+        joint at column dof(l): per-link Jacobian contributions times it are
+        per-dof columns."""
+        mult = self.mimic_mult.detach().cpu().numpy()
+        return dof_one_hot(self.dof_idx, self.n_dof) * mult[:, None]
 
     def update_spheres(self, centers: torch.Tensor, radii: torch.Tensor) -> "KinematicsParams":
         return dataclasses.replace(self, sphere_centers=centers, sphere_radii=radii)

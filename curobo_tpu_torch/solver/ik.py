@@ -1,13 +1,15 @@
 """Collision-free batched inverse kinematics solver.
 
 Counterpart of `curobo_tpu/solver/ik.py`, both routes. The kernel route: goal
-buffer -> seeds -> one `ik_solve` launch (pose-only warm-up, optional MPPI,
-L-BFGS, metrics, all inside the kernel) -> per-problem best-seed selection.
-The generic route (`_solve_impl`), taken exactly where the JAX `solve_pose`
-leaves its kernel (a goal set, per-tool criteria, a rollout config the kernel
-refuses, ``use_pallas=False``): `mppi_optimize` and `lbfgs_optimize` over
-`RobotRollout.evaluate_config`, plain PyTorch with autograd gradients. Seeds
-fold into the batch axis. Voxel worlds and the LM seed stage raise
+buffer (7 words per tool frame) -> seeds -> optional LM seed refinement
+(`opt/lm.py`, PyTorch) -> one `ik_solve` launch (pose-only warm-up, optional
+MPPI, L-BFGS, metrics, all inside the kernel) -> per-problem best-seed
+selection. The generic route (`_solve_impl`), taken exactly where the JAX
+`solve_pose` leaves its kernel (a goal set, per-tool criteria, a rollout
+config the kernel refuses, ``use_pallas=False``): the optional LM refinement
+of a larger seed pool cut to the best `n_seeds`, then `mppi_optimize` and
+`lbfgs_optimize` over `RobotRollout.evaluate_config`, plain PyTorch with
+autograd gradients. Seeds fold into the batch axis. Voxel worlds raise
 `NotImplementedError`; a failed kernel build or launch raises and never moves
 the solve to the generic route. There is no per-world kernel cache: obstacle
 capacities are launch arguments of the kernels.
@@ -26,6 +28,7 @@ from curobo_tpu_torch.cost import terms
 from curobo_tpu_torch.geom import world as world_mod
 from curobo_tpu_torch.ops import ik_kernels
 from curobo_tpu_torch.opt.lbfgs import LBFGSConfig, lbfgs_optimize
+from curobo_tpu_torch.opt.lm import LMConfig, SeedIK
 from curobo_tpu_torch.opt.mppi import MPPIConfig, mppi_optimize
 from curobo_tpu_torch.robot.params import KinematicsParams
 from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRollout, RobotRolloutConfig
@@ -49,10 +52,12 @@ class IKConfig:
     # gradient (L-BFGS) polish stage; read by the non-kernel route only: as
     # in the reference, the kernel route always runs its L-BFGS stage
     use_gradient_stage: bool = True
-    # LM seed-IK warm start (not ported: True raises)
+    # LM seed-IK warm start: pose-only Levenberg-Marquardt on every seed
+    # before the main optimizer (single goals, any tool count)
     use_lm_seed: bool = False
     lm_seed_iters: int = 10
     lm_step_clip: float = 0.5
+    # generic route only: LM-refine this many seeds and keep the best n_seeds
     lm_seed_pool: int = 0
     # pose-only (no collision terms) in-kernel L-BFGS stage before
     # MPPI/L-BFGS: seeds land near the pose manifold before the expensive
@@ -101,11 +106,6 @@ class IKSolver:
 
     def __init__(self, params: KinematicsParams, cfg: IKConfig = IKConfig(), device=None):
         self.device = runtime.resolve_device(device)
-        if cfg.use_lm_seed:
-            raise NotImplementedError(
-                "IKConfig.use_lm_seed=True: the LM seed-IK stage (opt/lm.py) is "
-                "not ported yet; use warmup_iters for the in-kernel warm start"
-            )
         self.params = params.to(self.device)
         self.cfg = cfg
         self.rollout = RobotRollout(self.params, cfg.rollout)
@@ -114,6 +114,11 @@ class IKSolver:
             self._build_kernel()
         # Halton seed bank in joint space (host constant, float64 as drawn).
         self._seed_bank = halton_sequence(max(cfg.n_seeds - 1, 1), params.n_dof)
+        self._seed_ik = None
+        if cfg.use_lm_seed:
+            self._seed_ik = SeedIK(
+                self.params, LMConfig(n_iters=cfg.lm_seed_iters, step_clip=cfg.lm_step_clip)
+            )
 
     def _build_kernel(self):
         cfg = self.cfg
@@ -163,6 +168,17 @@ class IKSolver:
             and ik_kernels.rollout_config_is_supported(self.cfg.rollout)
         )
 
+    def _lm_warm_start(self, goal_s: Goal, seeds: torch.Tensor):
+        """Pose-only LM refinement of every seed (B, S, D) against its goal
+        over all tool frames; goal sets pass through. Returns (seeds, LM
+        squared residual (B, S) or None)."""
+        if self._seed_ik is None:
+            return seeds, None
+        gp, gq = goal_s.goal_pos, goal_s.goal_quat
+        if gp.shape[-3] != 1:
+            return seeds, None
+        return self._seed_ik._solve(seeds, gp[..., 0, :, :], gq[..., 0, :, :])
+
     @staticmethod
     def _select(x, cost, pos_err, rot_err, conv) -> IKResult:
         """Per-problem best seed: converged seeds by cost, else by position
@@ -193,12 +209,20 @@ class IKSolver:
         seed: int,
         signs: Optional[torch.Tensor] = None,
     ) -> IKResult:
-        """The generic route: MPPI (signs from a generator keyed by `seed`, or
-        the given (B, S, D) signs) then L-BFGS over the generic objective, the
-        metrics, and the best-seed selection."""
+        """The generic route: the LM refinement (a seed pool larger than
+        `n_seeds` is cut to the best `n_seeds` by LM residual), MPPI (signs from
+        a generator keyed by `seed`, or the given (B, n_seeds, D) signs), then
+        L-BFGS over the generic objective, the metrics, and the best-seed
+        selection."""
         cfg = self.cfg
         B, S, D = seeds.shape
         goal_s = goal.tile_seeds(S)
+        seeds, lm_cost = self._lm_warm_start(goal_s, seeds)
+        if lm_cost is not None and S > cfg.n_seeds:
+            S = cfg.n_seeds
+            idx = torch.argsort(lm_cost, dim=-1, stable=True)[:, :S]
+            seeds = torch.gather(seeds, 1, idx[..., None].expand(B, S, D))
+            goal_s = goal.tile_seeds(S)
         lo, hi = (torch.as_tensor(b, device=seeds.device) for b in self.params.dof_clip_bounds())
 
         def cost(x):  # (B, S, D) with optional leading particle/candidate axes
@@ -226,9 +250,12 @@ class IKSolver:
         cfg = self.cfg
         B, S, D = seeds.shape
         goal_s = goal.tile_seeds(S)
+        seeds, _ = self._lm_warm_start(goal_s, seeds)
+        # (B S, 7 T): each tool frame's [position, quaternion] in turn
+        T = self.params.n_tools
         goal7 = torch.cat(
             [goal_s.goal_pos[..., 0, :, :], goal_s.goal_quat[..., 0, :, :]], dim=-1
-        ).reshape(B * S, 7)
+        ).reshape(B * S, T * 7)
         q, c, pe, re, fe = self._solve_kernel(
             goal7.contiguous(), seeds.reshape(B * S, D).contiguous(), seed, world, noise
         )
@@ -281,7 +308,11 @@ class IKSolver:
             )
         if world.device != self.device:
             raise ValueError(f"world lies on {world.device}, solver on {self.device}")
-        seeds = self.generate_seeds(goal.batch, seed_state)
         if self._use_kernel(goal):
+            seeds = self.generate_seeds(goal.batch, seed_state)
             return self._solve_impl_kernel(world, goal, seeds, seed, noise)
+        n_gen = self.cfg.n_seeds
+        if self._seed_ik is not None and self.cfg.lm_seed_pool > self.cfg.n_seeds:
+            n_gen = self.cfg.lm_seed_pool
+        seeds = self.generate_seeds(goal.batch, seed_state, n=n_gen)
         return self._solve_impl(world, goal, seeds, seed)

@@ -27,7 +27,7 @@ from curobo_tpu_torch.math import transform as tt
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 JAX_ROBOTS = os.path.join(ROOT, "curobo_tpu", "content", "robots")
 PORT = os.path.join(ROOT, "curobo_tpu_torch")
-ROBOTS = ("franka", "ur10e", "simple_mimic_robot")
+ROBOTS = ("franka", "ur10e", "simple_mimic_robot", "dual_ur10e")
 
 
 def _rand_quat(rng, n):
@@ -228,7 +228,7 @@ def _defaults(obj):
 @pytest.mark.parametrize(
     "name", ["IKConfig", "LBFGSConfig", "LineSearchConfig", "MPPIConfig", "RobotRolloutConfig",
              "PoseCostConfig", "BoundCostConfig", "CollisionCostConfig", "SelfCollisionCostConfig",
-             "CSpaceCostConfig"],
+             "CSpaceCostConfig", "LMConfig"],
 )
 def test_config_fields_and_defaults_equal(name):
     import importlib
@@ -236,6 +236,7 @@ def test_config_fields_and_defaults_equal(name):
     where = {
         "IKConfig": "solver.ik", "LBFGSConfig": "opt.lbfgs", "LineSearchConfig": "opt.lbfgs",
         "MPPIConfig": "opt.mppi", "RobotRolloutConfig": "rollout.robot_rollout",
+        "LMConfig": "opt.lm",
     }.get(name, "cost.terms")
     cj = getattr(importlib.import_module("curobo_tpu." + where), name)()
     ctc = getattr(importlib.import_module("curobo_tpu_torch." + where), name)()

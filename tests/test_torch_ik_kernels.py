@@ -370,9 +370,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(ur10e_case):
 
 
 def test_unsupported_robots_and_configs_are_refused():
-    dual = ct.Kinematics.from_robot_yaml(os.path.join(JAX_ROBOTS, "dual_ur10e.yml"), device="cpu")
-    with pytest.raises(NotImplementedError, match="tool frames"):
-        ikk.IKCost(dual.params, ct.IKConfig().rollout)
+    # two tool frames are served (T = 2 tables); more than IK_MAXT are refused
+    dual_cfg = ct.RobotModelConfig.from_yaml(ct.robot_config_path("dual_ur10e"))
+    dual = ct.build_kinematics_params(dual_cfg, device="cpu")
+    assert ikk.IKCost(dual, ct.IKConfig().rollout).tables.tools == dual.tool_frame_idx
+    many = dataclasses.replace(
+        dual_cfg, tool_frames=["tool0", "tool1", "flange", "flange_1", "wrist_3_link"]
+    )
+    assert len(many.tool_frames) > ikk.IK_MAXT
+    with pytest.raises(NotImplementedError, match="5 tool frames"):
+        ikk.IKCost(ct.build_kinematics_params(many, device="cpu"), ct.IKConfig().rollout)
     mimic = ct.Kinematics.from_robot_yaml(ct.robot_config_path("simple_mimic_robot"), device="cpu")
     with pytest.raises(ValueError, match="no collision spheres"):
         ikk.IKCost(mimic.params, ct.IKConfig().rollout)

@@ -1,7 +1,7 @@
 """Forward kinematics of the PyTorch package against the JAX package on the
-CPU: tool pose, link frames and sphere centres for the Franka, the UR10e and
-the mimic robot (mimic and locked joints), on 256 random configurations made
-from a seed with numpy.
+CPU: tool pose, link frames and sphere centres for the Franka, the UR10e, the
+mimic robot (mimic and locked joints) and the dual-arm UR10e (two tool frames),
+on 256 random configurations made from a seed with numpy.
 """
 
 import os
@@ -18,7 +18,7 @@ from curobo_tpu.robot.kinematics import Kinematics as JKin
 from curobo_tpu.robot.kinematics import compute_kinematics as jfk
 
 JAX_ROBOTS = os.path.join(os.path.dirname(__file__), "..", "curobo_tpu", "content", "robots")
-ROBOTS = ("franka", "ur10e", "simple_mimic_robot")
+ROBOTS = ("franka", "ur10e", "simple_mimic_robot", "dual_ur10e")
 # float32 chains of up to 15 link compositions, summed in another order
 ATOL = 1e-5
 
@@ -78,8 +78,10 @@ def test_leading_batch_dims_fold():
 
 def test_what_waits_raises():
     kt = ct.Kinematics.from_robot_yaml(ct.robot_config_path("ur10e"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Jacobian"):
-        kt.compute_kinematics(torch.zeros(1, kt.n_dof), compute_jacobian=True)
+    # the analytic Jacobian is ported (tests/test_torch_lm.py holds it to JAX)
+    st = kt.compute_kinematics(torch.zeros(1, kt.n_dof), compute_jacobian=True)
+    assert st.jacobian.shape == (1, 1, 6, kt.n_dof) and torch.isfinite(st.jacobian).all()
+    assert kt.compute_kinematics(torch.zeros(1, kt.n_dof)).jacobian is None
     with pytest.raises(NotImplementedError, match="URDF"):
         ct.RobotModelConfig.from_urdf("robot.urdf", "base", ["tool"])
     with pytest.raises(ValueError, match="trailing dimension"):

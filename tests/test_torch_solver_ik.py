@@ -221,17 +221,23 @@ def test_particle_stage_runs_through_the_solver(franka):
 def test_what_the_kernel_route_does_not_serve_raises(franka, case):
     """Goal sets, per-tool weights and c-space goals leave the kernel route
     for the generic one, as in the JAX package (and give finite results);
-    voxel worlds and the LM seed stage still raise."""
+    voxel worlds still raise. The LM seed stage is served: it refines the
+    seeds and the kernel route runs after it."""
     kin, world, solver = franka
     pos, quat = torch.zeros(2, 3) + 0.3, torch.tensor([[0.0, 1.0, 0, 0]] * 2)
     goal = ct.Goal.from_pose(ct.Pose(pos, quat))
-    if case in ("voxel_world", "use_lm_seed"):
-        with pytest.raises(NotImplementedError, match="voxel" if case == "voxel_world" else case):
-            if case == "voxel_world":
-                solver.solve_pose(dataclasses.replace(world, voxel_grids=(object(),)),
-                                  ct.Pose(pos, quat))
-            else:
-                ct.IKSolver(kin.params, ct.IKConfig(use_lm_seed=True), device="cpu")
+    if case == "voxel_world":
+        with pytest.raises(NotImplementedError, match="voxel"):
+            solver.solve_pose(dataclasses.replace(world, voxel_grids=(object(),)), ct.Pose(pos, quat))
+        return
+    if case == "use_lm_seed":
+        lm = ct.IKSolver(kin.params, dataclasses.replace(solver.cfg, use_lm_seed=True, lm_seed_iters=3),
+                         device="cpu")
+        assert lm._seed_ik is not None and lm._use_kernel(goal)
+        res = lm.solve_pose(world, ct.Pose(pos, quat))
+        assert res.solution.shape == (2, 7)
+        for name in ("solution", "position_error", "rotation_error", "cost", "seed_solutions"):
+            assert torch.isfinite(getattr(res, name)).all(), name
         return
     if case == "goal_set":
         goal = ct.Goal.from_pose(ct.Pose(pos[:, None, None].expand(2, 3, 1, 3).contiguous(),
