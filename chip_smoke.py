@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase (needs one CUDA device)
     python3 chip_smoke.py --quick    # build + kernel comparisons only
+    python3 chip_smoke.py --g1       # phase `g1` alone
 
 Builds the CUDA kernels from the sources in this checkout and holds each
 kernel against its plain PyTorch version on the card at the shapes of its
@@ -28,6 +29,13 @@ Phase `dual` holds both IK kernels at two tool frames (the dual-arm UR10e,
 bench's 100 dual-arm goals x 32 seeds through `IKSolver.solve_pose` with the LM
 seed stage (`bench.py:bench_dual_ur10e_cfik`'s budget): time per solve, the LM
 stage and the kernel apart, success (fails under 0.95), one `ik_solve` a solve.
+Phase `g1` solves `bench.py:bench_g1_cfik`'s protocol on the Unitree G1 (49
+dof, 4 tool frames, 162 111 self-collision pairs, 100 goals, LM pool 128 -> 16
+seeds) through `IKSolver.solve_pose` on the generic route, which the robot's
+shapes choose (no kernel takes it, none may launch): time per solve, the LM
+and L-BFGS stages apart, success (fails under 0.95), peak memory, busy share,
+the self-collision sum's time; then `ik_g1.yml` with the support polygon on
+(3 of 3 goals) and one solve of the default `IKConfig()`.
 The traces and the compiler's `-Xptxas -v` logs are written to
 `chiprun_out/`. Every line of output is one JSON object, except the line with
 the card's name and power limit. Exits non-zero on the first failed phase, and
@@ -1366,6 +1374,281 @@ def generic_phase(kin, suite):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The Unitree G1 (49 dof, 4 tool frames, 674 spheres, 162 111 pairs) on the
+# generic route: no kernel takes it
+# ---------------------------------------------------------------------------
+G1_GOALS, G1_REPS = 100, 5
+# success gate of phase `g1`, fixed before its first run on the card: the
+# reference's published 98.4 % and the JAX package's 99 % (on its own chip)
+# less a margin
+G1_GATE = 0.95
+
+
+def g1_scene():
+    """`bench.py:bench_g1_cfik`'s world: a 4 x 4 x 0.2 m table at z -0.2."""
+    return gt.Scene().add(
+        gt.Cuboid(name="table", pose=[0.0, 0.0, -0.2, 1, 0, 0, 0], dims=[4.0, 4.0, 0.2])
+    )
+
+
+def g1_bench_config():
+    """`ik_g1.yml` with `bench.py:bench_g1_cfik`'s overrides: 5 mm, no
+    support polygon, LM 30, no MPPI, the first 3 line-search scales; it keeps
+    16 seeds from an LM pool of 128 and L-BFGS 60 x history 10."""
+    cfg = ct.IKConfig.from_yaml(ct.content_path("tasks", "ik_g1.yml"))
+    ls = cfg.lbfgs.line_search
+    return dataclasses.replace(
+        cfg, position_threshold=0.005, lm_seed_iters=30, use_particle_stage=False,
+        rollout=dataclasses.replace(cfg.rollout, support_polygon=None),
+        lbfgs=dataclasses.replace(cfg.lbfgs, line_search=dataclasses.replace(
+            ls, scales=tuple(ls.scales[:3]))),
+    )
+
+
+def g1_goals(kin, world):
+    """`bench.py:bench_g1_cfik`'s goals: FK (4 tool frames) of configurations
+    drawn uniformly over the full limits, floating base included
+    (RandomState(7), 4 B candidates a round), rejected by
+    `RobotSceneCollision.validate`."""
+    p = kin.params
+    rsc = ct.RobotSceneCollision(p)
+    rng = np.random.RandomState(7)
+    lo, hi = p.joint_limits.lower.cpu().numpy(), p.joint_limits.upper.cpu().numpy()
+    pool, got = [], 0
+    while got < G1_GOALS:
+        cand = rng.uniform(lo, hi, (4 * G1_GOALS, p.n_dof)).astype(np.float32)
+        ok = rsc.validate(world, torch.as_tensor(cand, device=DEV)).cpu().numpy()
+        pool.append(cand[ok])
+        got += int(ok.sum())
+    st = kin.compute_kinematics(torch.as_tensor(np.concatenate(pool)[:G1_GOALS], device=DEV))
+    return ct.Pose(st.tool_pose.position, st.tool_pose.quaternion)
+
+
+def g1_pair_sum_times(kin, seed_solutions, n_scales):
+    """The layer that takes most of a G1 solve: the chunked self-collision sum
+    (`geom/self_collision.py`) at one L-BFGS line search's shape (scales x
+    goals x seeds candidates, the solve's own seeds): cost and gradient, the
+    cost alone and the distance (a metric), CUDA events, best of 5; the cost
+    and gradient also at other chunk sizes than the card's 4096 (the JAX
+    package's), and peak memory. The least time the cost and gradient could
+    take (operations: about 12 float operations a pair forward and 20
+    backward at 67 TFLOP/s; the bytes, the positions in and the cost out, are
+    far fewer)."""
+    from curobo_tpu_torch.geom import self_collision as scm
+
+    p = kin.params
+    q = seed_solutions.reshape(-1, p.n_dof).repeat(n_scales, 1)
+    spheres = kin.compute_kinematics(q).spheres.detach()
+    sc = p.self_collision
+
+    def cost_grad():
+        s = spheres.clone().requires_grad_(True)
+        c = scm.self_collision_cost(sc, s, 0.02)
+        return torch.autograd.grad(c.sum(), s)[0]
+
+    def cost():
+        with torch.no_grad():
+            return scm.self_collision_cost(sc, spheres, 0.02)
+
+    n = q.shape[0]
+    out = dict(candidates=n, pairs=int(sc.pair_a.shape[0]), chunk=scm._CHUNK,
+               cost_grad_ms=time_ms(cost_grad, reps=5), cost_ms=time_ms(cost, reps=5),
+               distance_ms=time_ms(lambda: scm.self_collision_distance(sc, spheres), reps=5))
+    out["bound_ms"] = bound_ms(n * out["pairs"] * 32.0, spheres.numel() * 4 * 2 + n * 4)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cost_grad()
+    torch.cuda.synchronize()
+    out["cost_grad_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    chunk = scm._CHUNK
+    try:
+        for c in (1024, 8192):
+            scm._CHUNK = c
+            out[f"cost_grad_ms_chunk_{c}"] = time_ms(cost_grad, reps=5)
+    finally:
+        scm._CHUNK = chunk
+    return out
+
+
+def g1_balance_goals(kin):
+    """The 3 goals of `tests/test_humanoid.py::test_task_config_success_rate`:
+    FK of body joints +-0.2 rad about retract (RandomState(5))."""
+    p = kin.params
+    rng = np.random.RandomState(5)
+    body = (np.arange(p.n_dof) >= 6).astype(np.float32)
+    retract = p.retract_config.cpu().numpy()
+    q_goal = (retract + rng.uniform(-0.2, 0.2, (3, p.n_dof)) * body).astype(np.float32)
+    st = kin.compute_kinematics(torch.as_tensor(q_goal, device=DEV))
+    return ct.Pose(st.tool_pose.position, st.tool_pose.quaternion)
+
+
+def g1_small_solve(kin, cfg, goals):
+    """One solve of the 3 balance goals from retract in an empty world: the
+    result and its host time (device synchronised)."""
+    p = kin.params
+    solver = ct.IKSolver(p, cfg)
+    if solver._use_kernel(ct.Goal.from_pose(goals)):
+        fail("g1: a 49-dof robot took the kernel route")
+    world = ct.empty_world(device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.solve_pose(world, goals, seed_state=p.retract_config)
+    torch.cuda.synchronize()
+    for name in ("solution", "position_error", "rotation_error", "cost"):
+        if not torch.isfinite(getattr(res, name)).all():
+            fail(f"g1: IKResult.{name} has non-finite values")
+    out = dict(goals=int(goals.position.shape[0]), solved=int(res.success.sum()),
+               ms=(time.perf_counter() - t0) * 1e3,
+               position_error_mm=(res.position_error * 1e3).tolist(),
+               rotation_error=res.rotation_error.tolist(),
+               thresholds=[cfg.position_threshold, cfg.rotation_threshold])
+    return res, out
+
+
+def g1_balance_check(kin, goals):
+    """The shipped `ik_g1.yml` with its defaults (support polygon on, hull
+    baked at retract, MPPI 16 x 4, LM 60) on the 3 balance goals: 3 of 3
+    within the config's thresholds."""
+    from curobo_tpu_torch.cost.support_polygon import configure_rollout
+
+    p = kin.params
+    cfg = ct.IKConfig.from_yaml(ct.content_path("tasks", "ik_g1.yml"))
+    cfg = dataclasses.replace(cfg, rollout=configure_rollout(cfg.rollout, p, p.retract_config))
+    res, out = g1_small_solve(kin, cfg, goals)
+    out["hull_vertices"] = len(cfg.rollout.support_hull)
+    if out["solved"] != 3 or float(res.position_error.max()) >= cfg.position_threshold:
+        fail(f"g1 balance check solved {out['solved']} of 3: {out}")
+    return out
+
+
+def g1_phase(out_dir):
+    """Phase `g1`: `bench.py:bench_g1_cfik`'s protocol at full width through
+    `IKSolver.solve_pose` on the generic route (the LM seed pool, L-BFGS with a
+    strong-Wolfe search over `RobotRollout`, the chunked self-collision sum):
+    a warm-up solve, G1_REPS timed solves (device synchronised around each,
+    and between the LM and L-BFGS stages), success (fails under G1_GATE), the
+    90th percentile of the position error, peak device memory of a solve, a
+    `torch.profiler` trace of one solve (busy share, kernels by name), no
+    kernel launch; then the balance check with the support polygon on and one
+    solve of the default `IKConfig()`."""
+    from curobo_tpu_torch.solver import ik as ik_mod
+
+    t_phase = time.perf_counter()
+    kin = ct.Kinematics.from_robot_yaml(ct.robot_config_path("unitree_g1"))
+    p = kin.params
+    world = ct.compile_scene(g1_scene())
+    goals = g1_goals(kin, world)
+    cfg = g1_bench_config()
+    solver = ct.IKSolver(p, cfg)
+    if solver._robot_takes_kernel or solver._ik_cost is not None:
+        fail("g1: the IK kernels took a robot of 49 dof and 162k pairs")
+    seed_state = p.retract_config
+    t0 = time.perf_counter()
+    res = solver.solve_pose(world, goals, seed_state=seed_state)  # warm-up
+    torch.cuda.synchronize()
+    emit(dict(phase="g1_warmup", ms=(time.perf_counter() - t0) * 1e3,
+              success_rate=float(res.success.float().mean()),
+              setup_s=t0 - t_phase))
+
+    # stage timers: the device synchronised before and after each stage
+    stage = {"lm": [], "lbfgs": []}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stage[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    lm_orig, lb_orig = solver._lm_warm_start, ik_mod.lbfgs_optimize
+    solver._lm_warm_start = timed("lm", lm_orig)
+    ik_mod.lbfgs_optimize = timed("lbfgs", lb_orig)
+    reset_counts()
+    times, peak = [], []
+    try:
+        for i in range(G1_REPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            res = solver.solve_pose(world, goals, seed=i, seed_state=seed_state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            peak.append(torch.cuda.max_memory_allocated() - base)
+    finally:
+        solver._lm_warm_start, ik_mod.lbfgs_optimize = lm_orig, lb_orig
+    launches = counts()
+    if any(launches.values()):
+        fail(f"g1: the generic route launched kernels: {launches}")
+
+    # one traced solve: busy share and device work by name; the trace itself
+    # (hundreds of MB) is read and removed
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("g1_solve"):
+            solver.solve_pose(world, goals, seed=0, seed_state=seed_state).solution.cpu()
+    path = os.path.join(out_dir, "g1_trace.json")
+    prof.export_chrome_trace(path)
+    trace = trace_busy(path, "g1_solve", 1)
+    os.remove(path)
+
+    for name in ("solution", "position_error", "rotation_error", "cost", "seed_solutions"):
+        if not torch.isfinite(getattr(res, name)).all():
+            fail(f"g1: IKResult.{name} has non-finite values")
+    D, S = p.n_dof, cfg.n_seeds
+    pair_sum = g1_pair_sum_times(kin, res.seed_solutions, len(cfg.lbfgs.line_search.scales))
+    if res.solution.shape != (G1_GOALS, D) or res.seed_solutions.shape != (G1_GOALS, S, D):
+        fail("g1: unexpected result shapes")
+    # the repo's own check: FK of a successful solution reaches all four
+    # tools' goals, and the solution is collision-free and within its limits
+    st = kin.compute_kinematics(res.solution)
+    fk_err = (st.tool_pose.position - goals.position).norm(dim=-1).amax(dim=-1)
+    ok = res.success
+    if bool(ok.any()) and float(fk_err[ok].max()) > cfg.position_threshold + 1e-4:
+        fail(f"g1: FK of a successful solution misses a goal by {float(fk_err[ok].max())}")
+    valid = ct.RobotSceneCollision(p).validate(world, res.solution)
+    if bool((ok & ~valid).any()):
+        fail("g1: a successful solution collides or leaves its limits")
+    sr = float(ok.float().mean())
+    pe = res.position_error.double().cpu().numpy()
+    sc = p.self_collision
+    summary = dict(
+        phase="g1", robot="unitree_g1", dof=D, tools=p.n_tools, links=p.n_links,
+        spheres=p.n_spheres, live_pairs=int(torch.isfinite(sc.pair_margin).sum()),
+        goals=G1_GOALS, seeds=S, lm_seed_pool=cfg.lm_seed_pool,
+        budget=f"LM pool {cfg.lm_seed_pool} x {cfg.lm_seed_iters} iters -> {S} seeds, no MPPI, "
+               f"L-BFGS {cfg.lbfgs.n_iters} x history {cfg.lbfgs.history}, strong Wolfe over "
+               f"scales {cfg.lbfgs.line_search.scales}; {cfg.position_threshold * 1e3:g} mm",
+        route="generic", success_rate=sr, gate=G1_GATE,
+        position_error_mm_p90=float(np.percentile(pe, 90) * 1e3),
+        median_rotation_error=float(res.rotation_error.median()),
+        ms_per_solve_median=statistics.median(times), ms_per_solve_min=min(times),
+        ms_per_solve=times, lm_ms=statistics.median(stage["lm"]),
+        lbfgs_ms=statistics.median(stage["lbfgs"]), lm_ms_all=stage["lm"],
+        lbfgs_ms_all=stage["lbfgs"], peak_memory_bytes_over_a_solve=max(peak),
+        kernel_launches=launches, pair_sum=pair_sum, profile=trace, gpu=gpu_line(),
+    )
+    if sr < G1_GATE:
+        fail(f"g1: success rate {sr} is under {G1_GATE}: {summary}")
+    small_goals = g1_balance_goals(kin)
+    summary["balance_check"] = g1_balance_check(kin, small_goals)
+    # the default IKConfig() takes the G1 too (32 seeds, MPPI 32 x 8, L-BFGS
+    # 40 over 7 scales): it constructs and solves on the generic route; its
+    # success is reported, not gated (its budget is not the G1's)
+    summary["default_config"] = g1_small_solve(kin, ct.IKConfig(), small_goals)[1]
+    if any(counts().values()):
+        fail(f"g1: the generic route launched kernels: {counts()}")
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    return summary
+
+
 def main():
     quick = "--quick" in sys.argv[1:]
     t_start = time.perf_counter()
@@ -1373,6 +1656,10 @@ def main():
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     try:
+        if "--g1" in sys.argv[1:]:
+            emit(dict(phase="env", gpu=gpu_line(), torch=torch.__version__, cuda=torch.version.cuda))
+            emit(g1_phase(out_dir))
+            return
         run(quick, t_start, out_dir)
     finally:
         with open(os.path.join(out_dir, "chip_smoke.jsonl"), "w") as fh:
@@ -1398,6 +1685,13 @@ def run(quick, t_start, out_dir):
         spills = ptxas_of(ptx[lib], kernel)["spill_stores_with_callees"]
         if spills:
             fail(f"{kernel} spills {spills} bytes (-Xptxas -v, {lib})")
+    # the route predicate's constants (`ik_kernels.robot_takes_kernel`) against
+    # the built library and the card
+    optin = getattr(torch.cuda.get_device_properties(DEV), "shared_memory_per_block_optin",
+                    ikk.IK_SMEM_BYTES)
+    if ikk.IK_MAXD != ikk._lib().ik_max_dof() or ikk.IK_SMEM_BYTES != optin:
+        fail(f"robot_takes_kernel's constants: IK_MAXD {ikk.IK_MAXD} vs ik_max_dof() "
+             f"{ikk._lib().ik_max_dof()}, IK_SMEM_BYTES {ikk.IK_SMEM_BYTES} vs the card's {optin}")
 
     # ---- set-up -------------------------------------------------------------
     kin = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"))
@@ -1616,6 +1910,9 @@ def run(quick, t_start, out_dir):
     mpc, mpc_launches = mpc_phase(kin, out_dir)
     emit(mpc)
     emit(generic_phase(kin, suite))
+
+    # ---- the Unitree G1 on the generic route ----------------------------------------
+    emit(g1_phase(out_dir))
 
     # ---- the kernels line ------------------------------------------------------------
     io_cg = N * (7 + D) * 4 + N * (1 + D) * 4

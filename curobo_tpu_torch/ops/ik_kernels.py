@@ -61,6 +61,17 @@ _LIB_NAME = "ik_kernels"
 # sizes the `tool` array of `_CRobot` and the warp's goal slot (7 words per
 # tool); tests/test_torch_multitool.py holds the two equal.
 IK_MAXT = 4
+# Most degrees of freedom: IK_MAXD of ops/csrc/ik_device.cuh (lane d of a warp
+# owns dof d); chip_smoke.py holds it equal to the library's `ik_max_dof()`.
+IK_MAXD = 16
+# Shared memory a block may opt in to on sm_90 (227 KB; chip_smoke.py holds it
+# equal to the card's `shared_memory_per_block_optin`), and the kernels' warps
+# per block and goal-slot words (IK_WARPS of ops/csrc/ik_kernels.cu,
+# IK_GOAL_WORDS and IK_TERR_WORDS of ops/csrc/ik_device.cuh).
+IK_SMEM_BYTES = 232448
+_IK_WARPS = 4
+_IK_GOAL_WORDS = (7 * IK_MAXT + 3) & ~3
+_IK_TERR_WORDS = 6 * IK_MAXT
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +162,29 @@ def goal_takes_kernel(goal) -> bool:
         and goal.tool_tolerance is None
         and goal.goal_cspace is None
     )
+
+
+def robot_takes_kernel(params: KinematicsParams, history: int = 0) -> bool:
+    """Whether the IK kernels take this robot, from its shapes alone (no built
+    library, no launch): 1 to IK_MAXT tool frames, at most IK_MAXD dof, a live
+    collision sphere, and the robot tables (the per-sphere pair lists
+    included) fit a block's shared memory beside IK_WARPS warps' evaluation
+    state, goal slot and an L-BFGS history of `history` pairs. The arithmetic
+    is the launch's (`ik_robot_words`, `ik_warp_words`, `ik_hist_words` in
+    ops/csrc/); the world is left out, as a world that does not fit goes to
+    global memory."""
+    if not (1 <= params.n_tools <= IK_MAXT and params.n_dof <= IK_MAXD):
+        return False
+    L, S, D = params.n_links, params.n_spheres, params.n_dof
+    P = int(torch.isfinite(params.self_collision.pair_margin).sum())
+    n_lsph = int((params.sphere_radii >= 0).sum())
+    if n_lsph == 0:
+        return False
+    robot = 20 * L + 4 * S + S + (S + 1) + 4 * P + (L + 1) + n_lsph + 6 * D + 8
+    state = 18 * L + 6 * S + 2 * IK_MAXD
+    hist = 2 * history * D + 3 * history
+    warp = state + _IK_GOAL_WORDS + _IK_TERR_WORDS + hist
+    return 4 * (robot + _IK_WARPS * warp) <= IK_SMEM_BYTES
 
 
 # ---------------------------------------------------------------------------

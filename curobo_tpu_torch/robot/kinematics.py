@@ -2,8 +2,8 @@
 
 Counterpart of `curobo_tpu/robot/kinematics.py`: all per-link local
 transforms are computed in one batch, then composed level by level down the
-tree. q is (..., n_dof) with arbitrary leading batch dims. The centre of
-mass waits for the slice that needs it.
+tree. q is (..., n_dof) with arbitrary leading batch dims. `compute_com`
+gives the whole robot's centre of mass from the link transforms.
 """
 
 from __future__ import annotations
@@ -116,6 +116,17 @@ def robot_spheres(
     centers = (R @ params.sphere_centers[..., None])[..., 0] + p
     radii = params.sphere_radii.expand(centers.shape[:-1])
     return torch.cat([centers, radii[..., None]], dim=-1)
+
+
+def compute_com(
+    params: KinematicsParams, link_rot: torch.Tensor, link_pos: torch.Tensor
+) -> torch.Tensor:
+    """Whole-robot centre of mass in the world frame (..., 3): a mass-weighted
+    sum over the link transforms already computed."""
+    com_w = torch.einsum("...lij,lj->...li", link_rot, params.link_com) + link_pos
+    m = params.link_mass  # (L,)
+    total = m.sum().clamp_min(1e-9)
+    return torch.einsum("l,...li->...i", m, com_w) / total
 
 
 @functools.lru_cache(maxsize=32)

@@ -10,18 +10,23 @@ comes from autograd. Objectives take arbitrary leading batch axes; a
 trajectory adds a horizon axis before the dof: (..., H, D).
 
 The JAX package also has a B-last form of this objective (`ops/blast.py`); the
-port has this one, which the tests hold against both. The `_env` variants
-wait with multi-environment worlds; a torque limit (inverse dynamics) and an
-active support polygon raise `NotImplementedError`.
+port has this one, which the tests hold against both. `cost_config` is the
+cost of `evaluate_config` without its metrics, for the optimizers, which read
+only the cost. The support-polygon term needs the hull baked into the config
+(`cost/support_polygon.py:configure_rollout`). The `_env` variants wait with
+multi-environment worlds; a torque limit (inverse dynamics) raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
+from curobo_tpu_torch.cost import support_polygon as sp_mod
 from curobo_tpu_torch.cost import terms
 from curobo_tpu_torch.geom import world as world_mod
 from curobo_tpu_torch.geom.self_collision import self_collision_distance
@@ -106,9 +111,10 @@ class RobotRolloutConfig:
     acceleration_weight: float = 0.0
     jerk_weight: float = 0.0
     use_swept_collision: bool = True
-    # humanoid balance (support polygon) penalty; not ported yet: the
-    # kernels refuse any value but None, the generic objective an active one
-    support_polygon: Optional[object] = None
+    # humanoid balance: centre-of-mass-inside-support-polygon penalty over
+    # the hull baked by `cost.support_polygon.configure_rollout`; the
+    # kernels refuse any value but None
+    support_polygon: Optional[sp_mod.SupportPolygonConfig] = None
     support_hull: Optional[tuple] = None  # ((x, y), ...) CCW
     # inverse-dynamics torque-limit penalty
     torque_limit_weight: float = 0.0
@@ -143,12 +149,25 @@ class RolloutResult:
         )
 
 
-def _refuse_unported(cfg: RobotRolloutConfig):
-    if cfg.support_polygon is not None and cfg.support_polygon.weight > 0:
-        raise NotImplementedError(
-            "RobotRollout: the support-polygon term (cost/support_polygon.py, "
-            "compute_com) is not ported yet"
+@functools.lru_cache(maxsize=8)
+def _hull_tensor(hull: tuple, device: torch.device) -> torch.Tensor:
+    """The baked hull as a (V, 2) tensor on `device`, copied there once."""
+    return torch.tensor(hull, dtype=torch.float32, device=device)
+
+
+def _support_polygon_cost(p: KinematicsParams, cfg: RobotRolloutConfig, state):
+    """The balance term (...,) of FK state `state`, or None when it is off."""
+    sp = cfg.support_polygon
+    if sp is None or sp.weight <= 0:
+        return None
+    if cfg.support_hull is None:
+        raise ValueError(
+            "RobotRollout: the support-polygon term needs a hull; build the config with "
+            "cost.support_polygon.configure_rollout(cfg, params, q_stance)"
         )
+    com = kin_mod.compute_com(p, state.link_rot, state.link_pos)
+    hull = _hull_tensor(cfg.support_hull, com.device)
+    return sp_mod.support_polygon_cost(com[..., :2], hull, sp)
 
 
 class RobotRollout:
@@ -160,15 +179,9 @@ class RobotRollout:
         self.cfg = cfg
 
     # -- single-state objective (IK) ------------------------------------
-    def evaluate_config(
-        self,
-        world: world_mod.WorldData,
-        goal: Goal,
-        q: torch.Tensor,  # (..., D)
-        collision_eps: float = 0.0,
-    ) -> RolloutResult:
+    def _config_cost(self, world, goal: Goal, q: torch.Tensor):
+        """(FK state, cost, pos_err, rot_err, cspace_err) of configurations q."""
         p, cfg = self.params, self.cfg
-        _refuse_unported(cfg)
         state = kin_mod.compute_kinematics(p, q)
         cost, pos_err, rot_err = terms.pose_error(
             state.tool_pose.position, state.tool_pose.quaternion,
@@ -190,6 +203,26 @@ class RobotRollout:
         cost = cost + terms.self_collision_cost_term(
             p.self_collision, state.spheres, cfg.self_collision_cost
         )
+        spc = _support_polygon_cost(p, cfg, state)
+        if spc is not None:
+            cost = cost + spc
+        return state, cost, pos_err, rot_err, cspace_err
+
+    def cost_config(
+        self, world: world_mod.WorldData, goal: Goal, q: torch.Tensor
+    ) -> torch.Tensor:
+        """The cost (...,) of `evaluate_config`, without its metrics."""
+        return self._config_cost(world, goal, q)[1]
+
+    def evaluate_config(
+        self,
+        world: world_mod.WorldData,
+        goal: Goal,
+        q: torch.Tensor,  # (..., D)
+        collision_eps: float = 0.0,
+    ) -> RolloutResult:
+        p = self.params
+        state, cost, pos_err, rot_err, cspace_err = self._config_cost(world, goal, q)
 
         # metrics / feasibility (no activation margin)
         live = state.spheres[..., 3] >= 0
@@ -212,7 +245,6 @@ class RobotRollout:
         collision_eps: float = 0.0,
     ) -> RolloutResult:
         p, cfg = self.params, self.cfg
-        _refuse_unported(cfg)
         if cfg.torque_limit_weight > 0.0 and traj.velocity is not None:
             raise NotImplementedError(
                 "RobotRollout: the torque-limit term needs inverse dynamics "
@@ -266,6 +298,9 @@ class RobotRollout:
             p.self_collision, state.spheres, cfg.self_collision_cost
         )
         cost = cost + sc.sum(dim=-1)
+        spc = _support_polygon_cost(p, cfg, state)  # (..., H)
+        if spc is not None:
+            cost = cost + spc.sum(dim=-1)
 
         # feasibility over every step
         live = state.spheres[..., 3] >= 0

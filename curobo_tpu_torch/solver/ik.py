@@ -6,7 +6,10 @@ buffer (7 words per tool frame) -> seeds -> optional LM seed refinement
 MPPI, L-BFGS, metrics, all inside the kernel) -> per-problem best-seed
 selection. The generic route (`_solve_impl`), taken exactly where the JAX
 `solve_pose` leaves its kernel (a goal set, per-tool criteria, a rollout
-config the kernel refuses, ``use_pallas=False``): the optional LM refinement
+config the kernel refuses, ``use_pallas=False``) and for a robot whose shapes
+the kernels do not take (`ik_kernels.robot_takes_kernel`: the G1's 49 dof and
+162k pairs), where the JAX package falls back after its kernel fails: the
+optional LM refinement
 of a larger seed pool cut to the best `n_seeds`, then `mppi_optimize` and
 `lbfgs_optimize` over `RobotRollout.evaluate_config`, plain PyTorch with
 autograd gradients. Seeds fold into the batch axis. Voxel worlds raise
@@ -110,7 +113,14 @@ class IKSolver:
         self.cfg = cfg
         self.rollout = RobotRollout(self.params, cfg.rollout)
         self._ik_cost = self._solve_kernel = None
-        if cfg.use_pallas and ik_kernels.rollout_config_is_supported(cfg.rollout):
+        # the robot's shapes decide the route once, before any launch: a
+        # robot the kernels do not take (the G1: 49 dof, 162k pairs) takes
+        # the generic route on every device
+        hist = max(cfg.lbfgs.history, ik_kernels.IKSolveBudget.warmup_history)
+        self._robot_takes_kernel = ik_kernels.robot_takes_kernel(self.params, hist)
+        if self._robot_takes_kernel and cfg.use_pallas and ik_kernels.rollout_config_is_supported(
+            cfg.rollout
+        ):
             self._build_kernel()
         # Halton seed bank in joint space (host constant, float64 as drawn).
         self._seed_bank = halton_sequence(max(cfg.n_seeds - 1, 1), params.n_dof)
@@ -161,9 +171,11 @@ class IKSolver:
 
     # ------------------------------------------------------------------
     def _use_kernel(self, goal: Goal) -> bool:
-        """The JAX `solve_pose`'s conditions for its kernel route."""
+        """The JAX `solve_pose`'s conditions for its kernel route, and the
+        robot's shapes."""
         return (
             self.cfg.use_pallas
+            and self._robot_takes_kernel
             and ik_kernels.goal_takes_kernel(goal)
             and ik_kernels.rollout_config_is_supported(self.cfg.rollout)
         )
@@ -226,7 +238,7 @@ class IKSolver:
         lo, hi = (torch.as_tensor(b, device=seeds.device) for b in self.params.dof_clip_bounds())
 
         def cost(x):  # (B, S, D) with optional leading particle/candidate axes
-            return self.rollout.evaluate_config(world, goal_s, x).cost
+            return self.rollout.cost_config(world, goal_s, x)
 
         x = seeds
         if cfg.use_particle_stage:

@@ -148,8 +148,6 @@ class MPCSolver:
                 "MPCSolver: a torque limit needs inverse dynamics (robot/dynamics.py, "
                 "RNEA), which is not ported yet"
             )
-        if cfg.rollout.support_polygon is not None:
-            raise NotImplementedError("MPCSolver: the support-polygon term is not ported yet")
         self.params = params.to(self.device)
         self.cfg = cfg
         self.rollout = RobotRollout(self.params, cfg.rollout)

@@ -10,9 +10,9 @@ kernel route runs each round as one `traj_solve` launch (optional MPPI, L-BFGS
 over the free knots, metrics, retimed dt) and the final check as one
 `traj_cost_grad` launch in its metrics mode. The generic route (`_solve_seeds`)
 serves c-space goals (`solve_cspace`), goal sets, more than one tool, per-tool
-criteria, per-axis pose weights and ``use_pallas=False``: `mppi_optimize` and
-`lbfgs_optimize` over `RobotRollout.evaluate_trajectory`, plain PyTorch with
-autograd gradients. A torque limit, a support polygon and voxel worlds raise
+criteria, per-axis pose weights, a support polygon and ``use_pallas=False``:
+`mppi_optimize` and `lbfgs_optimize` over `RobotRollout.evaluate_trajectory`,
+plain PyTorch with autograd gradients. A torque limit and voxel worlds raise
 `NotImplementedError`; a failed kernel build or launch raises and never moves
 the solve to the generic route. There is no per-world kernel cache: obstacle
 capacities are launch arguments and nothing is built per world.
@@ -127,10 +127,6 @@ class TrajOptSolver:
             raise NotImplementedError(
                 "TrajOptSolver: a torque limit needs inverse dynamics (robot/dynamics.py, "
                 "RNEA), which is not ported yet"
-            )
-        if cfg.rollout.support_polygon is not None:
-            raise NotImplementedError(
-                "TrajOptSolver: the support-polygon term is not ported yet"
             )
         self.params = params.to(self.device)
         self.cfg = cfg

@@ -27,7 +27,12 @@ from curobo_tpu_torch.math import transform as tt
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 JAX_ROBOTS = os.path.join(ROOT, "curobo_tpu", "content", "robots")
 PORT = os.path.join(ROOT, "curobo_tpu_torch")
-ROBOTS = ("franka", "ur10e", "simple_mimic_robot", "dual_ur10e")
+ROBOTS = ("franka", "ur10e", "simple_mimic_robot", "dual_ur10e", "unitree_g1")
+# content files copied byte for byte, as (folder, file): the robots, then the
+# task configs the port reads
+CONTENT_COPIES = [pytest.param("robots", r + ".yml", id=r) for r in ROBOTS] + [
+    pytest.param("tasks", t, id="tasks/" + t) for t in ("ik_g1.yml", "ik.yml")
+]
 
 
 def _rand_quat(rng, n):
@@ -150,11 +155,11 @@ def test_halton_sequence_bit_equal(n, dim, skip):
     assert np.array_equal(a, b)
 
 
-@pytest.mark.parametrize("robot", ROBOTS)
-def test_robot_yaml_copy_is_byte_identical(robot):
-    with open(os.path.join(JAX_ROBOTS, robot + ".yml"), "rb") as f:
+@pytest.mark.parametrize("folder,name", CONTENT_COPIES)
+def test_robot_yaml_copy_is_byte_identical(folder, name):
+    with open(os.path.join(ROOT, "curobo_tpu", "content", folder, name), "rb") as f:
         ref = f.read()
-    with open(ct.robot_config_path(robot), "rb") as f:
+    with open(ct.content_path(folder, name), "rb") as f:
         assert f.read() == ref
 
 

@@ -294,9 +294,14 @@ def test_refusals_and_device(ur10e):
     with pytest.raises(NotImplementedError, match="inverse dynamics"):
         MPCSolver(kt.params, MPCConfig(rollout=dataclasses.replace(
             MPCConfig().rollout, torque_limit_weight=1.0)), device="cpu")
-    with pytest.raises(NotImplementedError, match="support-polygon"):
-        MPCSolver(kt.params, MPCConfig(rollout=dataclasses.replace(
-            MPCConfig().rollout, support_polygon=object())), device="cpu")
+    # the support-polygon term takes the generic route
+    from curobo_tpu_torch.cost.support_polygon import SupportPolygonConfig
+
+    sp = MPCSolver(kt.params, MPCConfig(rollout=dataclasses.replace(
+        MPCConfig().rollout, support_polygon=SupportPolygonConfig(weight=1.0),
+        support_hull=((0.0, 0.0), (1.0, 0.0), (0.0, 1.0)))), device="cpu")
+    pose0 = ct.Pose(torch.zeros(1, 3), torch.tensor([[1.0, 0, 0, 0]]))
+    assert sp._solve_kernel is None and not sp._use_kernel(sp.make_goal(pose0))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             MPCSolver(kt.params)

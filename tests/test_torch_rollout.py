@@ -342,9 +342,9 @@ def test_unported_terms_raise(franka):
     with pytest.raises(NotImplementedError, match="inverse dynamics"):
         r.evaluate_trajectory(franka["wt"], gt_, traj)
 
-    class _Poly:
-        weight = 1.0
+    # the support-polygon term is ported: it needs a hull baked into the config
+    from curobo_tpu_torch.cost.support_polygon import SupportPolygonConfig
 
-    r = RobotRollout(kt.params, RobotRolloutConfig(support_polygon=_Poly()))
-    with pytest.raises(NotImplementedError, match="support-polygon"):
+    r = RobotRollout(kt.params, RobotRolloutConfig(support_polygon=SupportPolygonConfig(weight=1.0)))
+    with pytest.raises(ValueError, match="hull"):
         r.evaluate_config(franka["wt"], gt_, traj.position[:, 0])
