@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase (needs one CUDA device)
     python3 chip_smoke.py --quick    # build + kernel comparisons only
     python3 chip_smoke.py --g1       # phase `g1` alone
+    python3 chip_smoke.py --retarget # phase `retarget` alone
 
 Builds the CUDA kernels from the sources in this checkout and holds each
 kernel against its plain PyTorch version on the card at the shapes of its
@@ -32,10 +33,22 @@ stage and the kernel apart, success (fails under 0.95), one `ik_solve` a solve.
 Phase `g1` solves `bench.py:bench_g1_cfik`'s protocol on the Unitree G1 (49
 dof, 4 tool frames, 162 111 self-collision pairs, 100 goals, LM pool 128 -> 16
 seeds) through `IKSolver.solve_pose` on the generic route, which the robot's
-shapes choose (no kernel takes it, none may launch): time per solve, the LM
-and L-BFGS stages apart, success (fails under 0.95), peak memory, busy share,
-the self-collision sum's time; then `ik_g1.yml` with the support polygon on
-(3 of 3 goals) and one solve of the default `IKConfig()`.
+shapes choose (no IK kernel takes it, none may launch; its self-collision sum
+must run the pair kernels): time per solve, the LM and L-BFGS stages apart,
+success (fails under 0.95), peak memory, busy share; then `ik_g1.yml` with
+the support polygon on (3 of 3 goals) and one solve of the default
+`IKConfig()`. Phase `sc_kernels` holds the three self-collision pair kernels
+(`ops/csrc/self_collision.cu`) against their plain versions at the G1 line
+search (4800 x 162 111 pairs, the G1 solve's seeds), the retarget robot's
+global and local frames and the Franka (3200 x 694), with two launches giving
+the same bits (the gradient gated over its nonzero entries and by its largest
+error), and times each beside its plain version and its bound. Phase
+`retarget` drives `MotionRetargeter` on `unitree_g1_29dof_retarget.yml` (35
+dof, 14 tool frames, 55 414 pairs): a 120-frame clip at B = 1, 64 clips of
+30 frames at once, the default MPC mode (which raises in the MPPI bank's
+Halton sampler, as the reference's does: 245 dimensions of its 62), and the
+protocol of `examples/humanoid_retargeting.py` on `unitree_g1.yml` (gated at
+position error p90 < 20 mm and by the example's own limits).
 The traces and the compiler's `-Xptxas -v` logs are written to
 `chiprun_out/`. Every line of output is one JSON object, except the line with
 the card's name and power limit. Exits non-zero on the first failed phase, and
@@ -64,7 +77,9 @@ if not torch.cuda.is_available():
 import curobo_tpu_torch as ct
 from curobo_tpu_torch.geom import types as gt
 from curobo_tpu_torch.ops import build as kbuild
+from curobo_tpu_torch.geom.self_collision import self_collision_distance
 from curobo_tpu_torch.ops import ik_kernels as ikk
+from curobo_tpu_torch.ops import self_collision_kernels as sck
 from curobo_tpu_torch.ops import traj_kernels as tk
 from curobo_tpu_torch.opt.lbfgs import LBFGSConfig, LineSearchConfig
 from curobo_tpu_torch.opt.mppi import MPPIConfig, smooth_sample_transform
@@ -811,7 +826,9 @@ KERNEL_COUNTS = {"ik_solve": ikk.ik_solve, "ik_cost_grad": ikk.ik_cost_grad,
 
 
 def reset_counts():
-    for fn in KERNEL_COUNTS.values():
+    """Every kernel's launch count to 0: the IK and trajectory kernels'
+    (`counts`) and the pair kernels' (`sc_counts`)."""
+    for fn in (*KERNEL_COUNTS.values(), *SC_KERNELS.values()):
         fn.launches = 0
 
 
@@ -1301,7 +1318,8 @@ def generic_phase(kin, suite):
     default `IKConfig()`, 32 seeds, table world) and `plan_cspace` on every
     6th problem of the motion suite (the goal is the problem's stored IK
     solution `q_goal_oracle`), the default `MotionPlanConfig()`. Neither
-    launches a kernel."""
+    launches an IK or trajectory kernel; their self-collision sums run the
+    pair kernels."""
     world = ct.compile_scene(table_scene(), device=DEV)
     goals = goal_set_problems(kin, world)
     solver = ct.IKSolver(kin.params, device=DEV)
@@ -1353,9 +1371,11 @@ def generic_phase(kin, suite):
         rows.append(dict(scenario=p["scenario"], success=bool(r.success[0]),
                          plan_ms=dt_wall * 1e3, motion_time=float(r.motion_time[0]),
                          max_jerk=float(st.jerk[0].abs().max())))
-    launches = counts()
+    launches, pair_launches = counts(), sc_counts()
     if any(launches.values()):
-        fail(f"the generic route launched kernels: {launches}")
+        fail(f"the generic route launched IK or trajectory kernels: {launches}")
+    if pair_launches["sc_pair_cost"] < 1 or pair_launches["sc_pair_grad"] < 1:
+        fail(f"the generic route's pair sum did not go through the pair kernels: {pair_launches}")
     t = np.asarray([r["plan_ms"] for r in rows])
     okr = [r for r in rows if r["success"]]
     cs = dict(problems=len(rows), success_rate=len(okr) / len(rows),
@@ -1366,7 +1386,7 @@ def generic_phase(kin, suite):
               per_scenario={s: float(np.mean([r["success"] for r in rows if r["scenario"] == s]))
                             for s in sorted({r["scenario"] for r in rows})})
     out = dict(phase="generic", gates=GENERIC_GATE, ik_goal_set=ik, plan_cspace=cs,
-               launches=launches)
+               launches=launches, pair_kernel_launches=pair_launches)
     if ik["success_rate"] < GENERIC_GATE["ik_goal_set"]:
         fail(f"goal-set IK success {ik['success_rate']} under its gate: {out}")
     if cs["success_rate"] < GENERIC_GATE["plan_cspace"]:
@@ -1425,53 +1445,6 @@ def g1_goals(kin, world):
     return ct.Pose(st.tool_pose.position, st.tool_pose.quaternion)
 
 
-def g1_pair_sum_times(kin, seed_solutions, n_scales):
-    """The layer that takes most of a G1 solve: the chunked self-collision sum
-    (`geom/self_collision.py`) at one L-BFGS line search's shape (scales x
-    goals x seeds candidates, the solve's own seeds): cost and gradient, the
-    cost alone and the distance (a metric), CUDA events, best of 5; the cost
-    and gradient also at other chunk sizes than the card's 4096 (the JAX
-    package's), and peak memory. The least time the cost and gradient could
-    take (operations: about 12 float operations a pair forward and 20
-    backward at 67 TFLOP/s; the bytes, the positions in and the cost out, are
-    far fewer)."""
-    from curobo_tpu_torch.geom import self_collision as scm
-
-    p = kin.params
-    q = seed_solutions.reshape(-1, p.n_dof).repeat(n_scales, 1)
-    spheres = kin.compute_kinematics(q).spheres.detach()
-    sc = p.self_collision
-
-    def cost_grad():
-        s = spheres.clone().requires_grad_(True)
-        c = scm.self_collision_cost(sc, s, 0.02)
-        return torch.autograd.grad(c.sum(), s)[0]
-
-    def cost():
-        with torch.no_grad():
-            return scm.self_collision_cost(sc, spheres, 0.02)
-
-    n = q.shape[0]
-    out = dict(candidates=n, pairs=int(sc.pair_a.shape[0]), chunk=scm._CHUNK,
-               cost_grad_ms=time_ms(cost_grad, reps=5), cost_ms=time_ms(cost, reps=5),
-               distance_ms=time_ms(lambda: scm.self_collision_distance(sc, spheres), reps=5))
-    out["bound_ms"] = bound_ms(n * out["pairs"] * 32.0, spheres.numel() * 4 * 2 + n * 4)[0]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    cost_grad()
-    torch.cuda.synchronize()
-    out["cost_grad_peak_bytes"] = torch.cuda.max_memory_allocated() - base
-    chunk = scm._CHUNK
-    try:
-        for c in (1024, 8192):
-            scm._CHUNK = c
-            out[f"cost_grad_ms_chunk_{c}"] = time_ms(cost_grad, reps=5)
-    finally:
-        scm._CHUNK = chunk
-    return out
-
-
 def g1_balance_goals(kin):
     """The 3 goals of `tests/test_humanoid.py::test_task_config_success_rate`:
     FK of body joints +-0.2 rad about retract (RandomState(5))."""
@@ -1526,13 +1499,15 @@ def g1_balance_check(kin, goals):
 def g1_phase(out_dir):
     """Phase `g1`: `bench.py:bench_g1_cfik`'s protocol at full width through
     `IKSolver.solve_pose` on the generic route (the LM seed pool, L-BFGS with a
-    strong-Wolfe search over `RobotRollout`, the chunked self-collision sum):
-    a warm-up solve, G1_REPS timed solves (device synchronised around each,
-    and between the LM and L-BFGS stages), success (fails under G1_GATE), the
-    90th percentile of the position error, peak device memory of a solve, a
-    `torch.profiler` trace of one solve (busy share, kernels by name), no
-    kernel launch; then the balance check with the support polygon on and one
-    solve of the default `IKConfig()`."""
+    strong-Wolfe search over `RobotRollout`, whose self-collision sum runs the
+    pair kernels): a warm-up solve, G1_REPS timed solves (device synchronised
+    around each, and between the LM and L-BFGS stages), success (fails under
+    G1_GATE), the 90th percentile of the position error, peak device memory of
+    a solve, a `torch.profiler` trace of one solve (busy share, kernels by
+    name); `sc_pair_cost` and `sc_pair_grad` must launch and no IK or
+    trajectory kernel may; then the balance check with the support polygon on
+    and one solve of the default `IKConfig()`. Returns the summary and the G1
+    shape of the pair kernels (the solve's seeds at its line-search scales)."""
     from curobo_tpu_torch.solver import ik as ik_mod
 
     t_phase = time.perf_counter()
@@ -1582,9 +1557,11 @@ def g1_phase(out_dir):
             peak.append(torch.cuda.max_memory_allocated() - base)
     finally:
         solver._lm_warm_start, ik_mod.lbfgs_optimize = lm_orig, lb_orig
-    launches = counts()
+    launches, pair_launches = counts(), sc_counts()
     if any(launches.values()):
-        fail(f"g1: the generic route launched kernels: {launches}")
+        fail(f"g1: the generic route launched IK or trajectory kernels: {launches}")
+    if pair_launches["sc_pair_cost"] < 1 or pair_launches["sc_pair_grad"] < 1:
+        fail(f"g1: the pair sum did not go through the pair kernels: {pair_launches}")
 
     # one traced solve: busy share and device work by name; the trace itself
     # (hundreds of MB) is read and removed
@@ -1603,7 +1580,6 @@ def g1_phase(out_dir):
         if not torch.isfinite(getattr(res, name)).all():
             fail(f"g1: IKResult.{name} has non-finite values")
     D, S = p.n_dof, cfg.n_seeds
-    pair_sum = g1_pair_sum_times(kin, res.seed_solutions, len(cfg.lbfgs.line_search.scales))
     if res.solution.shape != (G1_GOALS, D) or res.seed_solutions.shape != (G1_GOALS, S, D):
         fail("g1: unexpected result shapes")
     # the repo's own check: FK of a successful solution reaches all four
@@ -1633,7 +1609,8 @@ def g1_phase(out_dir):
         ms_per_solve=times, lm_ms=statistics.median(stage["lm"]),
         lbfgs_ms=statistics.median(stage["lbfgs"]), lm_ms_all=stage["lm"],
         lbfgs_ms_all=stage["lbfgs"], peak_memory_bytes_over_a_solve=max(peak),
-        kernel_launches=launches, pair_sum=pair_sum, profile=trace, gpu=gpu_line(),
+        kernel_launches=launches, pair_kernel_launches=pair_launches, profile=trace,
+        gpu=gpu_line(),
     )
     if sr < G1_GATE:
         fail(f"g1: success rate {sr} is under {G1_GATE}: {summary}")
@@ -1644,9 +1621,417 @@ def g1_phase(out_dir):
     # success is reported, not gated (its budget is not the G1's)
     summary["default_config"] = g1_small_solve(kin, ct.IKConfig(), small_goals)[1]
     if any(counts().values()):
-        fail(f"g1: the generic route launched kernels: {counts()}")
+        fail(f"g1: the generic route launched IK or trajectory kernels: {counts()}")
     summary["phase_seconds"] = time.perf_counter() - t_phase
+    # the pair kernels' G1 shape: one line search of the solve's own seeds
+    n_scales = len(cfg.lbfgs.line_search.scales)
+    return summary, res.seed_solutions.reshape(-1, D).repeat(n_scales, 1)
+
+
+# ---------------------------------------------------------------------------
+# Phase `sc_kernels`: the self-collision pair kernels against their plain
+# versions
+# ---------------------------------------------------------------------------
+SC_KERNELS = {"sc_pair_cost": sck.sc_pair_cost, "sc_pair_grad": sck.sc_pair_grad,
+              "sc_pair_viol": sck.sc_pair_viol}
+# the largest violation: a max over the same distances, so equal to the
+# rounding of the squared distance's three terms
+SC_VIOL_ATOL = 1e-6
+# the gradient: most spheres are in no active pair and read exact zeros on
+# both sides, so its relative statistics are taken where either side is
+# nonzero, and its largest absolute difference is held to this share of the
+# largest plain entry (sums of the same terms in another float32 order), so
+# that one wrong sphere shows
+SC_GRAD_MAX_REL = 1e-5
+# float operations a pair (distance, hinge and sum; the backward's live test,
+# coefficient and three products and sums), the count of the bound; the gather evaluates every pair from both ends, so its backward
+# executes about twice 20
+SC_OPS_FWD, SC_OPS_BWD, SC_OPS_BWD_GATHER = 12.0, 20.0, 40.0
+SC_ACT = 0.02  # the G1 rollout's self-collision activation (ik_g1.yml)
+
+
+def sc_counts():
+    return {k: fn.launches for k, fn in SC_KERNELS.items()}
+
+
+def best_ms(fn, reps=5):
+    """Best of `reps` by CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return min(ts)
+
+
+def peak_bytes(fn):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def sc_case(label, sc, spheres, act=SC_ACT, seed=0):
+    """One shape: positions (S, 3, N) from `spheres`; `sc_pair_cost`,
+    `sc_pair_grad` (under a random upstream gradient in [0.5, 1.5)) and
+    `sc_pair_viol` against their plain versions (the chunked forward and
+    violation, the autograd scatter backward) and the gradient against the
+    plain gather in the kernel's order; two launches of each must give the
+    same bits. Then each kernel's time and its plain version's (CUDA events,
+    best of 5), their bounds, and the peak memory of a cost and gradient."""
+    pt = sck._sphere_major(spheres.detach())
+    S, _, N = pt.shape
+    tab = sck.pair_tables(sc, S, DEV)
+    P = tab.P
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    up = (torch.rand(N, generator=gen) + 0.5).to(DEV)
+    c_k, c_k2 = sck.sc_pair_cost(tab, pt, act), sck.sc_pair_cost(tab, pt, act)
+    g_k, g_k2 = sck.sc_pair_grad(tab, pt, up, act), sck.sc_pair_grad(tab, pt, up, act)
+    v_k, v_k2 = sck.sc_pair_viol(tab, pt), sck.sc_pair_viol(tab, pt)
+    torch.cuda.synchronize()
+    c_p = sck.sc_pair_cost_plain(tab, pt, act)
+    g_p = sck.sc_pair_grad_plain(tab, pt, up, act)
+    g_gather = sck.sc_pair_grad_gather_plain(tab, pt, up, act)
+    v_p = sck.sc_pair_viol_plain(tab, pt)
+    for name, t in (("sc_pair_cost", c_k), ("sc_pair_grad", g_k), ("sc_pair_viol", v_k)):
+        if not torch.isfinite(t).all():
+            fail(f"{name}[{label}] returned non-finite values")
+    c_med, c_p99 = rel_stats(c_k, c_p, 1e-2)
+    g, gg = grad_agreement(g_k, g_p), grad_agreement(g_k, g_gather)
+    out = dict(case=label, candidates=N, spheres=S, live_pairs=P, activation=act,
+               colliding_candidates=int((v_p > 0).sum()),
+               cost_rel_median=c_med, cost_rel_p99=c_p99,
+               grad_nonzero_share=g["nonzero_share"], grad_rel_median=g["rel_median"],
+               grad_rel_p99=g["rel_p99"], grad_max_abs_err_over_max=g["max_abs_err_over_max"],
+               grad_max_abs_plain=g["max_abs_plain"],
+               grad_vs_plain_gather_rel_median=gg["rel_median"],
+               grad_vs_plain_gather_rel_p99=gg["rel_p99"],
+               grad_vs_plain_gather_max_abs_err_over_max=gg["max_abs_err_over_max"],
+               max_abs_err_cost=float((c_k - c_p).abs().max()),
+               max_abs_err_grad=float((g_k - g_p).abs().max()),
+               max_abs_err_viol=float((v_k - v_p).abs().max()),
+               bitwise_equal=dict(cost=torch.equal(c_k, c_k2), grad=torch.equal(g_k, g_k2),
+                                  viol=torch.equal(v_k, v_k2)))
+    grad_ok = all(d["nonzero_share"] > 0 and d["rel_median"] < COST_MED and d["rel_p99"] < COST_P99
+                  and d["max_abs_err_over_max"] <= SC_GRAD_MAX_REL for d in (g, gg))
+    if not (c_med < COST_MED and c_p99 < COST_P99 and grad_ok):
+        fail(f"pair kernels [{label}] disagree with their plain versions: {out}")
+    if out["max_abs_err_viol"] > SC_VIOL_ATOL:
+        fail(f"sc_pair_viol [{label}] disagrees with its plain version: {out}")
+    if not all(out["bitwise_equal"].values()):
+        fail(f"pair kernels [{label}]: two launches on the same inputs differ: {out}")
+
+    def kernel_cost_grad():
+        xx = pt.clone().requires_grad_(True)
+        c = sck._PairHingeSum.apply(xx, tab, act)
+        return torch.autograd.grad((c * up).sum(), xx)[0]
+
+    def plain_cost_grad():
+        return sck.sc_pair_cost_plain(tab, pt, act), sck.sc_pair_grad_plain(tab, pt, up, act)
+
+    pos_bytes = pt.numel() * 4
+    tab_bytes = P * 12
+    inc_bytes = (S + 1) * 4 + 2 * P * 5
+    b_c = bound_ms(N * P * SC_OPS_FWD, pos_bytes + tab_bytes + N * 4)
+    b_g = bound_ms(N * P * SC_OPS_BWD, 2 * pos_bytes + N * 4 + tab_bytes + inc_bytes)
+    b_v = bound_ms(N * P * SC_OPS_FWD, pos_bytes + tab_bytes + N * 4)
+    b_cg = bound_ms(N * P * (SC_OPS_FWD + SC_OPS_BWD), 2 * pos_bytes + N * 8 + tab_bytes + inc_bytes)
+    out.update(
+        ms=dict(sc_pair_cost=best_ms(lambda: sck.sc_pair_cost(tab, pt, act)),
+                sc_pair_grad=best_ms(lambda: sck.sc_pair_grad(tab, pt, up, act)),
+                sc_pair_viol=best_ms(lambda: sck.sc_pair_viol(tab, pt)),
+                cost_and_grad=best_ms(kernel_cost_grad)),
+        plain_ms=dict(sc_pair_cost=best_ms(lambda: sck.sc_pair_cost_plain(tab, pt, act)),
+                      sc_pair_grad=best_ms(lambda: sck.sc_pair_grad_plain(tab, pt, up, act)),
+                      sc_pair_grad_gather=best_ms(
+                          lambda: sck.sc_pair_grad_gather_plain(tab, pt, up, act)),
+                      sc_pair_viol=best_ms(lambda: sck.sc_pair_viol_plain(tab, pt)),
+                      cost_and_grad=best_ms(plain_cost_grad)),
+        bound_ms=dict(sc_pair_cost=b_c[0], sc_pair_grad=b_g[0], sc_pair_viol=b_v[0],
+                      cost_and_grad=b_cg[0]),
+        bound_by=dict(sc_pair_cost=b_c[1], sc_pair_grad=b_g[1], sc_pair_viol=b_v[1],
+                      cost_and_grad=b_cg[1]),
+        # what the gather's recomputation adds: each pair is evaluated from both ends
+        bound_ms_grad_as_executed=bound_ms(N * P * SC_OPS_BWD_GATHER, 2 * pos_bytes)[0],
+        peak_bytes=dict(kernel_cost_and_grad=peak_bytes(kernel_cost_grad),
+                        plain_cost_and_grad=peak_bytes(plain_cost_grad)),
+    )
+    return out
+
+
+def sc_phase(g1_q, franka_q):
+    """Phase `sc_kernels`: the pair kernels at the shapes of their paths:
+    the G1 line search (`g1_q`: 4800 configurations, the G1 solve's own seeds
+    at its 3 line-search scales), the retarget
+    robot's global frame (MPPI: 32 particles x 24 seeds) and one local frame
+    (a line search at B = 1: 7 candidates, the pairs split over blocks), and
+    the Franka at 3200 configurations (694 of its 818 pairs live)."""
+    kg = ct.Kinematics.from_robot_yaml(ct.robot_config_path("unitree_g1"))
+    kr = ct.Kinematics.from_robot_yaml(ct.robot_config_path("unitree_g1_29dof_retarget"))
+    kf = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"))
+    rng = np.random.RandomState(3)
+    pr = kr.params
+    body = torch.as_tensor((np.arange(pr.n_dof) >= 6).astype(np.float32), device=DEV)
+
+    def near_retract(n, scale):
+        z = torch.as_tensor(rng.normal(0.0, scale, (n, pr.n_dof)).astype(np.float32), device=DEV)
+        return pr.retract_config + z * body
+
+    cases = [
+        sc_case("g1/line_search", kg.params.self_collision,
+                kg.compute_kinematics(g1_q).spheres),
+        sc_case("retarget/global_frame", pr.self_collision,
+                kr.compute_kinematics(near_retract(32 * 24, 0.3)).spheres),
+        sc_case("retarget/local_frame", pr.self_collision,
+                kr.compute_kinematics(near_retract(7, 0.3)).spheres),
+        sc_case("franka", kf.params.self_collision, kf.compute_kinematics(franka_q).spheres),
+    ]
+    return dict(phase="sc_kernels", limits=dict(
+        cost_rel_median=COST_MED, cost_rel_p99=COST_P99, grad_rel_median_nonzero=COST_MED,
+        grad_rel_p99_nonzero=COST_P99, grad_max_abs_err_over_max=SC_GRAD_MAX_REL,
+        viol_max_abs=SC_VIOL_ATOL), cases=cases, gpu=gpu_line())
+
+
+def grad_agreement(g, ref):
+    """Gradient statistics where either side is nonzero (relative error,
+    floor 1: median and 99th percentile), the share of such entries, and the
+    largest absolute difference over the largest |ref|."""
+    nz = (g != 0) | (ref != 0)
+    big = float(ref.abs().max())
+    out = dict(nonzero_share=float(nz.float().mean()), max_abs_plain=big,
+               max_abs_err_over_max=float((g - ref).abs().max()) / big if big > 0 else float("inf"),
+               rel_median=float("inf"), rel_p99=float("inf"))
+    if nz.any():
+        out["rel_median"], out["rel_p99"] = rel_stats(g[nz], ref[nz], 1.0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase `retarget`: the motion retargeter on the retargeting G1
+# ---------------------------------------------------------------------------
+RT_FPS = 30.0
+RT_FRAMES, RT_CLIPS, RT_CLIP_FRAMES, RT_EXAMPLE_FRAMES = 120, 64, 30, 40
+# the reference's error for the default MPC mode on the retarget robot
+RT_MPC_ERROR = "halton dim 245 > 62 supported"
+# position error p90 over all tools and frames of parts (a) and (b), fixed
+# before the first chip run: the JAX package's own limit for a retargeted
+# frame (tests/test_humanoid.py:332-357, every tool within 2 cm)
+RT_GATE_MM = 20.0
+# the protocol of examples/humanoid_retargeting.py: its gates
+EX_HAND_MEDIAN_MM, EX_FEET_DRIFT_MM = 30.0, 50.0
+# a smooth clip: per joint group the amplitude (rad, m for the base) of a
+# sine of 0.25-0.6 Hz at a random phase about retract, the arms abducted by
+# 0.5 rad so that the hands swing past the hips, the base walking 0.3 m
+RT_AMPLITUDE = {"base_j_x": 0.0, "base_j_y": 0.04, "base_j_z": 0.03, "base_j_xtheta": 0.04,
+                "base_j_ytheta": 0.04, "base_j_ztheta": 0.25, "hip_pitch": 0.35,
+                "hip_roll": 0.08, "hip_yaw": 0.15, "knee": 0.35, "ankle_pitch": 0.15,
+                "ankle_roll": 0.08, "waist_yaw": 0.3, "waist_roll": 0.08, "waist_pitch": 0.1,
+                "shoulder_pitch": 0.6, "shoulder_roll": 0.15, "shoulder_yaw": 0.3, "elbow": 0.4,
+                "wrist": 0.3}
+RT_ARM_ABDUCTION = 0.5
+
+
+def retarget_clip(p, n_frames, seed):
+    """A smooth joint path (n_frames, D) inside the joint limits, made with
+    numpy from `seed`: the targets are its FK, so every one is reachable."""
+    rng = np.random.RandomState(seed)
+    lo, hi = p.joint_limits.lower.cpu().numpy(), p.joint_limits.upper.cpu().numpy()
+    amp = np.asarray([next(a for k, a in RT_AMPLITUDE.items() if k in n) for n in p.joint_names])
+    off = np.asarray([RT_ARM_ABDUCTION if "left_shoulder_roll" in n else
+                      -RT_ARM_ABDUCTION if "right_shoulder_roll" in n else 0.0
+                      for n in p.joint_names])
+    t = np.arange(n_frames)[:, None] / RT_FPS
+    f = rng.uniform(0.25, 0.6, p.n_dof)
+    ph = rng.uniform(0.0, 2.0 * np.pi, p.n_dof)
+    q = p.retract_config.cpu().numpy() + off + amp * np.sin(2.0 * np.pi * f * t + ph)
+    q[:, 0] += 0.3 * t[:, 0] / t[-1, 0]
+    return np.clip(q, lo + 0.02, hi - 0.02).astype(np.float32)
+
+
+def rt_frames(rt, pos, quat):
+    """Drive `solve_frame` over goals (F, B, T, 3) / (F, B, T, 4): the
+    solutions (F, B, D), each frame's host time (device synchronised), the
+    first frame's result."""
+    sols, ms, first = [], [], None
+    for f in range(pos.shape[0]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rt.solve_frame(ct.Pose(pos[f], quat[f]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        sols.append(res.joint_state.position)
+        first = res if first is None else first
+    return torch.stack(sols), ms, first
+
+
+def rt_summary(kin, sols, pos, ms, first, launches, label):
+    """Per part: ms per frame (the global frame apart; median and p90), the
+    position error p50 / p90 over all tools and frames (mm), the largest
+    self-collision violation of the solutions, and the launches."""
+    p = kin.params
+    F, B, D = sols.shape
+    if not torch.isfinite(sols).all():
+        fail(f"retarget {label}: non-finite solutions")
+    st = kin.compute_kinematics(sols.reshape(F * B, D))
+    err = (st.tool_pose.position.reshape(F, B, -1, 3) - pos).norm(dim=-1) * 1e3
+    sv = self_collision_distance(p.self_collision, st.spheres)
+    e = err.double().cpu().numpy()
+    glob = first.success is not None  # frame 0 was a global IK frame
+    later = ms[1:] if glob else ms
+    out = dict(part=label, frames=F, batch=B, tools=p.n_tools, dof=D,
+               ms_global_frame=ms[0] if glob else None,
+               global_frame_success=float(first.success.float().mean()) if glob else None,
+               ms_per_frame_median=statistics.median(later),
+               ms_per_frame_p90=float(np.percentile(later, 90)),
+               position_error_mm_p50=float(np.percentile(e, 50)),
+               position_error_mm_p90=float(np.percentile(e, 90)),
+               position_error_mm_max=float(e.max()),
+               max_self_collision_violation_m=float(sv.max()), launches=launches)
+    return out
+
+
+def retarget_phase():
+    """Phase `retarget`: `MotionRetargeter` on `unitree_g1_29dof_retarget.yml`
+    (35 dof, 14 tool frames, 400 spheres, 55 414 pairs) in its empty world, at
+    full width: (a) one clip of 120 frames at B = 1, frame 0 the global IK
+    (24 seeds), the rest local IK with the default `RetargetConfig`; (b) 64
+    clips of 30 frames through `solve_frame` with (64, 14) goals; (c) the
+    default MPC mode, which must raise where the reference's does (its MPPI
+    bank has 7 free knots x 35 dof = 245 Halton dimensions, the sampler 62);
+    (d) the protocol of
+    `examples/humanoid_retargeting.py` on `unitree_g1.yml` (F = 40, its tool
+    weights, its gates). The pair kernels must launch in every part, the IK
+    kernels in none."""
+    from curobo_tpu_torch.motion.retargeter import MotionRetargeter, RetargetConfig
+
+    t_phase = time.perf_counter()
+    kin = ct.Kinematics.from_robot_yaml(ct.robot_config_path("unitree_g1_29dof_retarget"))
+    p = kin.params
+    parts, per_part = {}, {}
+
+    def run(label, rt, q):  # q (F, B, D): the targets are its FK
+        F, B, D = q.shape
+        st = kin.compute_kinematics(torch.as_tensor(q, device=DEV).reshape(F * B, D))
+        pos = st.tool_pose.position.reshape(F, B, -1, 3)
+        quat = st.tool_pose.quaternion.reshape(F, B, -1, 4)
+        target_viol = float(self_collision_distance(p.self_collision, st.spheres).max())
+        reset_counts()
+        sols, ms, first = rt_frames(rt, pos, quat)
+        launches = dict(sc_counts(), **counts())
+        out = rt_summary(kin, sols, pos, ms, first, launches, label)
+        if launches["sc_pair_cost"] < 1 or launches["sc_pair_grad"] < 1:
+            fail(f"retarget {label}: the pair kernels did not launch: {launches}")
+        if any(counts().values()):
+            fail(f"retarget {label}: an IK or trajectory kernel launched: {launches}")
+        per_part[label] = launches
+        out["targets_max_self_collision_violation_m"] = target_viol
+        return out
+
+    clip = retarget_clip(p, RT_FRAMES, 0)
+    parts["a_stream"] = run("a_stream", MotionRetargeter(p), clip[:, None])
+    clips = np.stack([retarget_clip(p, RT_CLIP_FRAMES, 1 + i) for i in range(RT_CLIPS)], axis=1)
+    parts["b_dataset"] = run("b_dataset", MotionRetargeter(p), clips)
+    parts["c_mpc"] = mpc_mode_raises(kin, clip)
+    parts["d_example"] = example_protocol(per_part)
+
+    summary = dict(phase="retarget", robot="unitree_g1_29dof_retarget", dof=p.n_dof,
+                   tools=p.n_tools, spheres=p.n_spheres,
+                   live_pairs=int(torch.isfinite(p.self_collision.pair_margin).sum()),
+                   gate_position_error_mm_p90=RT_GATE_MM, parts=parts,
+                   launches_per_part=per_part, gpu=gpu_line(),
+                   phase_seconds=time.perf_counter() - t_phase)
+    for k in ("a_stream", "b_dataset"):
+        if parts[k]["position_error_mm_p90"] >= RT_GATE_MM:
+            fail(f"retarget {k}: position error p90 {parts[k]['position_error_mm_p90']} mm is "
+                 f"not under {RT_GATE_MM} mm: {summary}")
     return summary
+
+
+def mpc_mode_raises(kin, clip):
+    """(c) The default MPC mode from frame 1 of the clip, warm-started at its
+    frame 0: the reference raises `ValueError("halton dim 245 > 62
+    supported")` there (`tests/test_torch_retargeter.py::
+    test_default_mpc_mode_raises_like_jax`), and so must the port."""
+    from curobo_tpu_torch.motion.retargeter import MotionRetargeter, RetargetConfig
+
+    q = torch.as_tensor(clip[:2], device=DEV)
+    st = kin.compute_kinematics(q)
+    rt = MotionRetargeter(kin.params, RetargetConfig(mode="mpc"))
+    try:
+        rt.solve_frame(ct.Pose(st.tool_pose.position[1:], st.tool_pose.quaternion[1:]), q[:1])
+    except ValueError as e:
+        if str(e) != RT_MPC_ERROR:
+            fail(f"retarget c_mpc: raised {e!r}, the reference raises {RT_MPC_ERROR!r}")
+        return dict(part="c_mpc", runs=False, error=str(e), as_reference=True)
+    fail("retarget c_mpc: the default MPC mode ran where the reference raises")
+
+
+def example_protocol(per_part):
+    """(d) `examples/humanoid_retargeting.py` on the card: `unitree_g1.yml`
+    (49 dof, 4 tools, 162 111 pairs), the right hand tracing an 8 cm circle
+    over 40 frames while the other tools hold their retract poses, feet
+    weighted hard, `solve_sequence` from retract (every frame local IK);
+    gates: median right-hand error under 30 mm, feet drift under 50 mm."""
+    from curobo_tpu_torch.motion.retargeter import MotionRetargeter, RetargetConfig
+
+    kin = ct.Kinematics.from_robot_yaml(ct.robot_config_path("unitree_g1"))
+    p = kin.params
+    q0 = p.retract_config
+    st0 = kin.compute_kinematics(q0)
+    F = RT_EXAMPLE_FRAMES
+    t = np.linspace(0, 2 * np.pi, F)
+    pos = np.tile(st0.tool_pose.position.cpu().numpy(), (F, 1, 1))
+    pos[:, 0, 1] += 0.08 * np.sin(t)
+    pos[:, 0, 2] += 0.08 * (1 - np.cos(t))
+    quat = np.tile(st0.tool_pose.quaternion.cpu().numpy(), (F, 1, 1))
+    goals = ct.Pose(torch.as_tensor(pos, dtype=torch.float32, device=DEV),
+                    torch.as_tensor(quat, dtype=torch.float32, device=DEV))
+    rt = MotionRetargeter(p, RetargetConfig(
+        tool_weights=((80.0, 10.0), (80.0, 10.0), (400.0, 100.0), (400.0, 100.0))))
+    ms = []
+    solve = rt.solve_frame
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(*a, **k)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    rt.solve_frame = timed
+    reset_counts()
+    traj = rt.solve_sequence(goals, q0)
+    launches = dict(sc_counts(), **counts())
+    per_part["d_example"] = launches
+    if launches["sc_pair_cost"] < 1 or launches["sc_pair_grad"] < 1 or any(counts().values()):
+        fail(f"retarget d_example: launches {launches}")
+    if not torch.isfinite(traj.position).all():
+        fail("retarget d_example: non-finite trajectory")
+    st = kin.compute_kinematics(traj.position)
+    err = (st.tool_pose.position[:, 0] - goals.position[:, 0]).norm(dim=-1).cpu().numpy() * 1e3
+    feet = float((st.tool_pose.position[:, 2:] - goals.position[:, 2:]).norm(dim=-1).max()) * 1e3
+    allerr = (st.tool_pose.position - goals.position).norm(dim=-1).double().cpu().numpy() * 1e3
+    out = dict(part="d_example", robot="unitree_g1", frames=F, dof=p.n_dof, tools=p.n_tools,
+               ms_per_frame_median=statistics.median(ms),
+               ms_per_frame_p90=float(np.percentile(ms, 90)),
+               hand_error_mm_median=float(np.median(err)), feet_drift_mm=feet,
+               position_error_mm_p50=float(np.percentile(allerr, 50)),
+               position_error_mm_p90=float(np.percentile(allerr, 90)),
+               max_self_collision_violation_m=float(
+                   self_collision_distance(p.self_collision, st.spheres).max()),
+               gates=dict(hand_error_mm_median=EX_HAND_MEDIAN_MM, feet_drift_mm=EX_FEET_DRIFT_MM),
+               launches=launches)
+    if out["hand_error_mm_median"] >= EX_HAND_MEDIAN_MM or feet >= EX_FEET_DRIFT_MM:
+        fail(f"retarget d_example misses the example's gates: {out}")
+    return out
 
 
 def main():
@@ -1656,14 +2041,94 @@ def main():
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     try:
-        if "--g1" in sys.argv[1:]:
+        alone = [a for a in sys.argv[1:] if a in ("--g1", "--retarget")]
+        if alone:
             emit(dict(phase="env", gpu=gpu_line(), torch=torch.__version__, cuda=torch.version.cuda))
-            emit(g1_phase(out_dir))
+            if "--g1" in alone:
+                emit(g1_phase(out_dir)[0])
+            if "--retarget" in alone:
+                emit(retarget_phase())
             return
         run(quick, t_start, out_dir)
     finally:
         with open(os.path.join(out_dir, "chip_smoke.jsonl"), "w") as fh:
             fh.write("".join(l + "\n" for l in LOG_LINES))
+
+
+# the kernels whose spills fail the build, by library (ptxas names; the pair
+# forward is a template: ILb0E the sum, ILb1E the maximum)
+NO_SPILL = {"ik_kernels": ("ik_solve_kernel",), "traj_kernels": ("traj_solve_kernel",),
+            "self_collision": ("sc_pair_reduce_kernelILb0E", "sc_pair_reduce_kernelILb1E",
+                               "sc_pair_grad_kernel")}
+
+
+def build_phase(out_dir, names=None):
+    """Build the libraries (one nvcc each, all started together), keep the
+    compiler's logs, and fail where a kernel of NO_SPILL spills. Returns the
+    `build` line, the ptxas summaries and the seconds."""
+    secs = kbuild.build_all(names)
+    for n in secs:
+        with open(os.path.join(out_dir, f"build_{n}.log"), "w") as fh:
+            fh.write(kbuild.build_log(n))
+    ptx = {n: ptxas_summary(kbuild.build_log(n)) for n in secs}
+    warnings = [l.strip() for n in secs for l in kbuild.build_log(n).splitlines() if "warning" in l.lower()]
+    line = dict(phase="build", seconds=secs, libraries=[kbuild.library_path(n) for n in secs],
+                warnings=warnings[:20], ptxas_summary=ptx, logs=out_dir)
+    for lib in secs:
+        for kernel in NO_SPILL.get(lib, ()):
+            spills = ptxas_of(ptx[lib], kernel)["spill_stores_with_callees"]
+            if spills:
+                fail(f"{kernel} spills {spills} bytes (-Xptxas -v, {lib})")
+    return line, ptx, secs
+
+
+def sc_kernel_lines(sc, g1, generic, rt, ptx):
+    """The `kernels` entries of the three pair kernels: times at the G1 line
+    search (the main fields), the retarget robot's global and local frames
+    and the Franka; launches in phase `retarget` (the slice's main path; per
+    part) and in phases `g1` and `generic`."""
+    cases = {c["case"]: c for c in sc["cases"]}
+    g, rg, rl, fr = (cases[k] for k in ("g1/line_search", "retarget/global_frame",
+                                         "retarget/local_frame", "franka"))
+    err_key = dict(sc_pair_cost="max_abs_err_cost", sc_pair_grad="max_abs_err_grad",
+                   sc_pair_viol="max_abs_err_viol")
+    ptx_name = dict(sc_pair_cost="sc_pair_reduce_kernelILb0E", sc_pair_grad="sc_pair_grad_kernel",
+                    sc_pair_viol="sc_pair_reduce_kernelILb1E")
+    replaces = dict(sc_pair_cost="curobo_tpu/ops/pallas_ik.py:710",
+                    sc_pair_grad="curobo_tpu/ops/pallas_ik.py:710",
+                    sc_pair_viol="curobo_tpu/ops/pallas_ik.py:789")
+    def shape(c):
+        return f"N={c['candidates']} S={c['spheres']} P={c['live_pairs']}"
+
+    lines = []
+    for k in SC_KERNELS:
+        per_part = {part: n[k] for part, n in rt["launches_per_part"].items()}
+        line = dict(
+            name=k, route="cuda", source="curobo_tpu_torch/ops/csrc/self_collision.cu",
+            replaces=replaces[k], launches=sum(per_part.values()),
+            max_abs_err=max(c[err_key[k]] for c in sc["cases"]),
+            tolerance=("|viol_kernel - viol_plain| <= 1e-6 m" if k == "sc_pair_viol" else
+                       f"relative error: median < {COST_MED}, 99th percentile < {COST_P99}"),
+            ms=g["ms"][k], plain_ms=g["plain_ms"][k], bound_ms=g["bound_ms"][k],
+            bound_by=g["bound_by"][k], library_ms=None,
+            shape=shape(g) + " unitree_g1, one line search of the G1 solve's seeds",
+            launches_retarget_per_part=per_part,
+            launches_g1_phase=g1["pair_kernel_launches"][k],
+            launches_generic_phase=generic["pair_kernel_launches"][k],
+            shape_retarget_global=shape(rg), ms_retarget_global=rg["ms"][k],
+            plain_ms_retarget_global=rg["plain_ms"][k], bound_ms_retarget_global=rg["bound_ms"][k],
+            shape_retarget_local=shape(rl), ms_retarget_local=rl["ms"][k],
+            plain_ms_retarget_local=rl["plain_ms"][k], bound_ms_retarget_local=rl["bound_ms"][k],
+            shape_franka=shape(fr), ms_franka=fr["ms"][k], plain_ms_franka=fr["plain_ms"][k],
+            bound_ms_franka=fr["bound_ms"][k],
+            ptxas=ptxas_of(ptx, ptx_name[k]))
+        if k == "sc_pair_grad":
+            line.update(also_replaces="the custom_vjp backward of sc_matmul_cost",
+                        plain_is="the chunked scatter (index_add_) of the plain sum",
+                        plain_ms_gather=g["plain_ms"]["sc_pair_grad_gather"],
+                        bound_ms_as_executed=g["bound_ms_grad_as_executed"])
+        lines.append(line)
+    return lines
 
 
 def run(quick, t_start, out_dir):
@@ -1673,18 +2138,8 @@ def run(quick, t_start, out_dir):
     emit(env)
 
     # ---- build ------------------------------------------------------------
-    secs = kbuild.build_all()
-    for n in secs:
-        with open(os.path.join(out_dir, f"build_{n}.log"), "w") as fh:
-            fh.write(kbuild.build_log(n))
-    ptx = {n: ptxas_summary(kbuild.build_log(n)) for n in secs}
-    warnings = [l.strip() for n in secs for l in kbuild.build_log(n).splitlines() if "warning" in l.lower()]
-    emit(dict(phase="build", seconds=secs, libraries=[kbuild.library_path(n) for n in secs],
-              warnings=warnings[:20], ptxas_summary=ptx, logs=out_dir))
-    for lib, kernel in (("ik_kernels", "ik_solve_kernel"), ("traj_kernels", "traj_solve_kernel")):
-        spills = ptxas_of(ptx[lib], kernel)["spill_stores_with_callees"]
-        if spills:
-            fail(f"{kernel} spills {spills} bytes (-Xptxas -v, {lib})")
+    build, ptx, secs = build_phase(out_dir)
+    emit(build)
     # the route predicate's constants (`ik_kernels.robot_takes_kernel`) against
     # the built library and the card
     optin = getattr(torch.cuda.get_device_properties(DEV), "shared_memory_per_block_optin",
@@ -1909,10 +2364,18 @@ def run(quick, t_start, out_dir):
     # ---- MPC's main path, then the generic route ------------------------------------
     mpc, mpc_launches = mpc_phase(kin, out_dir)
     emit(mpc)
-    emit(generic_phase(kin, suite))
+    generic = generic_phase(kin, suite)
+    emit(generic)
 
     # ---- the Unitree G1 on the generic route ----------------------------------------
-    emit(g1_phase(out_dir))
+    g1, g1_q = g1_phase(out_dir)
+    emit(g1)
+
+    # ---- the pair kernels at their paths' shapes, then the retargeter ---------------
+    sc = sc_phase(g1_q, seeds)
+    emit(sc)
+    rt = retarget_phase()
+    emit(rt)
 
     # ---- the kernels line ------------------------------------------------------------
     io_cg = N * (7 + D) * 4 + N * (1 + D) * 4
@@ -2032,9 +2495,10 @@ def run(quick, t_start, out_dir):
                  "cost_rel_median", "x_agree_frac", "feasible_agree_frac", "max_abs_err_x")},
              ptxas=ptxas_of(ptx["traj_kernels"], "traj_solve_kernel")),
     ]
+    kernels += sc_kernel_lines(sc, g1, generic, rt, ptx["self_collision"])
     emit(dict(phase="compare_summary", env={k: env[k] for k in ("torch", "cuda", "python")},
               build_seconds=secs, cases=brief_cases(
-                  [cmp, tcmp, mpc_cmp, full_bench, full_inj, full_traj, dual_cmp], []),
+                  [cmp, tcmp, mpc_cmp, full_bench, full_inj, full_traj, dual_cmp, sc], []),
               full_output="chiprun_out/chip_smoke.jsonl"))
     emit(dict(quoted_not_measured="kernel ms of the one-thread-per-evaluation design, "
                                   "PERF.md, PR 2 (NVIDIA H100 80GB HBM3, 700 W)",

@@ -27,7 +27,8 @@ from curobo_tpu_torch.math import transform as tt
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 JAX_ROBOTS = os.path.join(ROOT, "curobo_tpu", "content", "robots")
 PORT = os.path.join(ROOT, "curobo_tpu_torch")
-ROBOTS = ("franka", "ur10e", "simple_mimic_robot", "dual_ur10e", "unitree_g1")
+ROBOTS = ("franka", "ur10e", "simple_mimic_robot", "dual_ur10e", "unitree_g1",
+          "unitree_g1_29dof_retarget")
 # content files copied byte for byte, as (folder, file): the robots, then the
 # task configs the port reads
 CONTENT_COPIES = [pytest.param("robots", r + ".yml", id=r) for r in ROBOTS] + [

@@ -43,6 +43,7 @@ from curobo_tpu_torch.cost import support_polygon as tsp
 from curobo_tpu_torch.geom import self_collision as tsc
 from curobo_tpu_torch.geom import types as tgt
 from curobo_tpu_torch.ops import ik_kernels as ikk
+from curobo_tpu_torch.ops import self_collision_kernels as sck
 from curobo_tpu_torch.robot.kinematics import compute_com as tcom
 from curobo_tpu_torch.robot.params import SelfCollisionParams as TSC
 from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRollout
@@ -159,7 +160,7 @@ def test_pair_count_not_a_multiple_of_the_chunk(g1, n_configs):
     q = base[rng.randint(0, 4, n_configs)] + rng.normal(0, 0.05, (n_configs, base.shape[1])).astype(np.float32)
     spheres = np.array(jfk(g1["pj"], jnp.asarray(q)).spheres)
     pt = tsc._sphere_major(torch.as_tensor(spheres))
-    assert n % tsc._chunk_size(pt) != 0
+    assert n % sck._chunk_size(pt) != 0
     gj, gt, cj, ct_ = _grad_both(scj, sct, spheres, 0.02)
     assert (cj > 0).sum() >= 2
     np.testing.assert_allclose(ct_, cj, rtol=1e-5, atol=1e-6)
