@@ -86,6 +86,7 @@ from curobo_tpu_torch.opt.mppi import MPPIConfig, smooth_sample_transform
 from curobo_tpu_torch.transition.bspline import BSplineConfig, BSplineTransition
 
 DEV = torch.device("cuda", 0)
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 N_GOALS, N_SEEDS = 100, 32
 N_TRAJ = 1024  # trajectories of the trajectory-kernel comparisons
 
@@ -1644,8 +1645,9 @@ SC_VIOL_ATOL = 1e-6
 # that one wrong sphere shows
 SC_GRAD_MAX_REL = 1e-5
 # float operations a pair (distance, hinge and sum; the backward's live test,
-# coefficient and three products and sums), the count of the bound; the gather evaluates every pair from both ends, so its backward
-# executes about twice 20
+# coefficient and three products and sums), the count of the bound; the
+# gradient kernel evaluates every pair from both ends (each sphere tile
+# gathers its own), so its backward executes about twice 20
 SC_OPS_FWD, SC_OPS_BWD, SC_OPS_BWD_GATHER = 12.0, 20.0, 40.0
 SC_ACT = 0.02  # the G1 rollout's self-collision activation (ik_g1.yml)
 
@@ -1669,6 +1671,30 @@ def best_ms(fn, reps=5):
     return min(ts)
 
 
+# cycles of the spin kernel that holds the stream while `device_ms` enqueues
+# its calls: about 10 ms at the H100's clocks, more than the host takes to
+# enqueue 10 calls
+SPIN_CYCLES = 20_000_000
+
+
+def device_ms(fn, reps=10):
+    """Device time of one call of `fn` with the host out of the way: a spin
+    kernel holds the stream while the host enqueues `reps` calls, so CUDA
+    events around them time the calls' kernels back to back (the device's own
+    gaps between launches included), not the host's time between launches,
+    which sets `best_ms` of a call that launches little work."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def peak_bytes(fn):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1682,51 +1708,74 @@ def sc_case(label, sc, spheres, act=SC_ACT, seed=0):
     """One shape: positions (S, 3, N) from `spheres`; `sc_pair_cost`,
     `sc_pair_grad` (under a random upstream gradient in [0.5, 1.5)) and
     `sc_pair_viol` against their plain versions (the chunked forward and
-    violation, the autograd scatter backward) and the gradient against the
-    plain gather in the kernel's order; two launches of each must give the
-    same bits. Then each kernel's time and its plain version's (CUDA events,
-    best of 5), their bounds, and the peak memory of a cost and gradient."""
+    violation, the autograd scatter backward) and against the plain versions
+    that walk the tile tables in the kernels' order (`sc_pair_*_tiled_plain`);
+    two launches of each must give the same bits, and so must a launch on a
+    view of the positions that is not 16-byte aligned. Then each kernel's time and
+    its plain versions' (CUDA events, best of 20 and of 5; the kernels also
+    by their device time, enqueued behind a spin kernel), their bounds, a
+    model of the bytes a launch stages into shared memory (computed, not
+    measured), and the peak memory of a cost and gradient."""
     pt = sck._sphere_major(spheres.detach())
     S, _, N = pt.shape
     tab = sck.pair_tables(sc, S, DEV)
     P = tab.P
+    geo = sck.geometry_of(tab, N)
     gen = torch.Generator(device="cpu").manual_seed(seed)
     up = (torch.rand(N, generator=gen) + 0.5).to(DEV)
     c_k, c_k2 = sck.sc_pair_cost(tab, pt, act), sck.sc_pair_cost(tab, pt, act)
     g_k, g_k2 = sck.sc_pair_grad(tab, pt, up, act), sck.sc_pair_grad(tab, pt, up, act)
     v_k, v_k2 = sck.sc_pair_viol(tab, pt), sck.sc_pair_viol(tab, pt)
+    # the same positions in a view that starts 4 bytes into its storage: the
+    # kernels stage them in 4-byte copies instead of 16-byte ones, to the
+    # same bits
+    pu = torch.empty(pt.numel() + 1, device=DEV)[1:].view(pt.shape).copy_(pt)
+    unaligned = dict(cost=torch.equal(sck.sc_pair_cost(tab, pu, act), c_k),
+                     grad=torch.equal(sck.sc_pair_grad(tab, pu, up, act), g_k),
+                     viol=torch.equal(sck.sc_pair_viol(tab, pu), v_k))
     torch.cuda.synchronize()
     c_p = sck.sc_pair_cost_plain(tab, pt, act)
     g_p = sck.sc_pair_grad_plain(tab, pt, up, act)
-    g_gather = sck.sc_pair_grad_gather_plain(tab, pt, up, act)
     v_p = sck.sc_pair_viol_plain(tab, pt)
+    c_t = sck.sc_pair_cost_tiled_plain(tab, pt, act)
+    g_t = sck.sc_pair_grad_tiled_plain(tab, pt, up, act)
+    v_t = sck.sc_pair_viol_tiled_plain(tab, pt)
     for name, t in (("sc_pair_cost", c_k), ("sc_pair_grad", g_k), ("sc_pair_viol", v_k)):
         if not torch.isfinite(t).all():
             fail(f"{name}[{label}] returned non-finite values")
     c_med, c_p99 = rel_stats(c_k, c_p, 1e-2)
-    g, gg = grad_agreement(g_k, g_p), grad_agreement(g_k, g_gather)
+    ct_med, ct_p99 = rel_stats(c_k, c_t, 1e-2)
+    g, gt = grad_agreement(g_k, g_p), grad_agreement(g_k, g_t)
     out = dict(case=label, candidates=N, spheres=S, live_pairs=P, activation=act,
+               live_tiles=tab.L, tile_fill=P / (tab.L * sck.SC_TS ** 2),
+               geometry=dataclasses.asdict(geo),
                colliding_candidates=int((v_p > 0).sum()),
                cost_rel_median=c_med, cost_rel_p99=c_p99,
+               cost_vs_plain_tiled_rel_median=ct_med, cost_vs_plain_tiled_rel_p99=ct_p99,
                grad_nonzero_share=g["nonzero_share"], grad_rel_median=g["rel_median"],
                grad_rel_p99=g["rel_p99"], grad_max_abs_err_over_max=g["max_abs_err_over_max"],
                grad_max_abs_plain=g["max_abs_plain"],
-               grad_vs_plain_gather_rel_median=gg["rel_median"],
-               grad_vs_plain_gather_rel_p99=gg["rel_p99"],
-               grad_vs_plain_gather_max_abs_err_over_max=gg["max_abs_err_over_max"],
+               grad_vs_plain_tiled_rel_median=gt["rel_median"],
+               grad_vs_plain_tiled_rel_p99=gt["rel_p99"],
+               grad_vs_plain_tiled_max_abs_err_over_max=gt["max_abs_err_over_max"],
                max_abs_err_cost=float((c_k - c_p).abs().max()),
                max_abs_err_grad=float((g_k - g_p).abs().max()),
                max_abs_err_viol=float((v_k - v_p).abs().max()),
+               max_abs_err_viol_vs_plain_tiled=float((v_k - v_t).abs().max()),
                bitwise_equal=dict(cost=torch.equal(c_k, c_k2), grad=torch.equal(g_k, g_k2),
-                                  viol=torch.equal(v_k, v_k2)))
+                                  viol=torch.equal(v_k, v_k2)),
+               unaligned_view_bitwise_equal=unaligned)
     grad_ok = all(d["nonzero_share"] > 0 and d["rel_median"] < COST_MED and d["rel_p99"] < COST_P99
-                  and d["max_abs_err_over_max"] <= SC_GRAD_MAX_REL for d in (g, gg))
-    if not (c_med < COST_MED and c_p99 < COST_P99 and grad_ok):
+                  and d["max_abs_err_over_max"] <= SC_GRAD_MAX_REL for d in (g, gt))
+    cost_ok = max(c_med, ct_med) < COST_MED and max(c_p99, ct_p99) < COST_P99
+    if not (cost_ok and grad_ok):
         fail(f"pair kernels [{label}] disagree with their plain versions: {out}")
-    if out["max_abs_err_viol"] > SC_VIOL_ATOL:
-        fail(f"sc_pair_viol [{label}] disagrees with its plain version: {out}")
+    if max(out["max_abs_err_viol"], out["max_abs_err_viol_vs_plain_tiled"]) > SC_VIOL_ATOL:
+        fail(f"sc_pair_viol [{label}] disagrees with its plain versions: {out}")
     if not all(out["bitwise_equal"].values()):
         fail(f"pair kernels [{label}]: two launches on the same inputs differ: {out}")
+    if not all(unaligned.values()):
+        fail(f"pair kernels [{label}]: an unaligned view of the positions gives other bits: {out}")
 
     def kernel_cost_grad():
         xx = pt.clone().requires_grad_(True)
@@ -1736,63 +1785,92 @@ def sc_case(label, sc, spheres, act=SC_ACT, seed=0):
     def plain_cost_grad():
         return sck.sc_pair_cost_plain(tab, pt, act), sck.sc_pair_grad_plain(tab, pt, up, act)
 
+    # bytes: positions, the kernel's tables and the upstream gradient read
+    # once, the result written once
     pos_bytes = pt.numel() * 4
-    tab_bytes = P * 12
-    inc_bytes = (S + 1) * 4 + 2 * P * 5
-    b_c = bound_ms(N * P * SC_OPS_FWD, pos_bytes + tab_bytes + N * 4)
-    b_g = bound_ms(N * P * SC_OPS_BWD, 2 * pos_bytes + N * 4 + tab_bytes + inc_bytes)
-    b_v = bound_ms(N * P * SC_OPS_FWD, pos_bytes + tab_bytes + N * 4)
-    b_cg = bound_ms(N * P * (SC_OPS_FWD + SC_OPS_BWD), 2 * pos_bytes + N * 8 + tab_bytes + inc_bytes)
+    blk = sck.SC_TS ** 2 * 4
+    fwd_tab = tab.L * (blk + 8)
+    E = tab.nb_tile.shape[0]
+    grad_tab = E * (blk + 4) + (tab.n_tiles + 1) * 4
+    b_c = bound_ms(N * P * SC_OPS_FWD, pos_bytes + fwd_tab + N * 4)
+    b_g = bound_ms(N * P * SC_OPS_BWD, 2 * pos_bytes + N * 4 + grad_tab)
+    b_v = bound_ms(N * P * SC_OPS_FWD, pos_bytes + fwd_tab + N * 4)
+    b_cg = bound_ms(N * P * (SC_OPS_FWD + SC_OPS_BWD), 2 * pos_bytes + N * 8 + fwd_tab + grad_tab)
+    # a model, not a reading: what a launch would stage through L2 into
+    # shared memory, per block and tile the partner's positions for its cw
+    # candidates and a margin block
+    per_tile = sck.SC_TS * 3 * geo.cw * 4 + blk
+    staged = dict(sc_pair_cost=geo.columns * tab.L * per_tile,
+                  sc_pair_grad=geo.columns * E * per_tile)
     out.update(
-        ms=dict(sc_pair_cost=best_ms(lambda: sck.sc_pair_cost(tab, pt, act)),
-                sc_pair_grad=best_ms(lambda: sck.sc_pair_grad(tab, pt, up, act)),
-                sc_pair_viol=best_ms(lambda: sck.sc_pair_viol(tab, pt)),
-                cost_and_grad=best_ms(kernel_cost_grad)),
+        # the kernels best of 20: at a few candidates a call is host time,
+        # which varies by tens of microseconds between calls
+        ms=dict(sc_pair_cost=best_ms(lambda: sck.sc_pair_cost(tab, pt, act), 20),
+                sc_pair_grad=best_ms(lambda: sck.sc_pair_grad(tab, pt, up, act), 20),
+                sc_pair_viol=best_ms(lambda: sck.sc_pair_viol(tab, pt), 20),
+                cost_and_grad=best_ms(kernel_cost_grad, 20)),
+        device_ms=dict(sc_pair_cost=device_ms(lambda: sck.sc_pair_cost(tab, pt, act)),
+                       sc_pair_grad=device_ms(lambda: sck.sc_pair_grad(tab, pt, up, act)),
+                       sc_pair_viol=device_ms(lambda: sck.sc_pair_viol(tab, pt))),
         plain_ms=dict(sc_pair_cost=best_ms(lambda: sck.sc_pair_cost_plain(tab, pt, act)),
                       sc_pair_grad=best_ms(lambda: sck.sc_pair_grad_plain(tab, pt, up, act)),
-                      sc_pair_grad_gather=best_ms(
-                          lambda: sck.sc_pair_grad_gather_plain(tab, pt, up, act)),
+                      sc_pair_grad_tiled=best_ms(
+                          lambda: sck.sc_pair_grad_tiled_plain(tab, pt, up, act)),
                       sc_pair_viol=best_ms(lambda: sck.sc_pair_viol_plain(tab, pt)),
                       cost_and_grad=best_ms(plain_cost_grad)),
         bound_ms=dict(sc_pair_cost=b_c[0], sc_pair_grad=b_g[0], sc_pair_viol=b_v[0],
                       cost_and_grad=b_cg[0]),
         bound_by=dict(sc_pair_cost=b_c[1], sc_pair_grad=b_g[1], sc_pair_viol=b_v[1],
                       cost_and_grad=b_cg[1]),
-        # what the gather's recomputation adds: each pair is evaluated from both ends
+        # what the gather's recomputation adds: each pair evaluated from both ends
         bound_ms_grad_as_executed=bound_ms(N * P * SC_OPS_BWD_GATHER, 2 * pos_bytes)[0],
+        staged_bytes_model=staged,
         peak_bytes=dict(kernel_cost_and_grad=peak_bytes(kernel_cost_grad),
                         plain_cost_and_grad=peak_bytes(plain_cost_grad)),
     )
     return out
 
 
-def sc_phase(g1_q, franka_q):
-    """Phase `sc_kernels`: the pair kernels at the shapes of their paths:
-    the G1 line search (`g1_q`: 4800 configurations, the G1 solve's own seeds
-    at its 3 line-search scales), the retarget
-    robot's global frame (MPPI: 32 particles x 24 seeds) and one local frame
-    (a line search at B = 1: 7 candidates, the pairs split over blocks), and
-    the Franka at 3200 configurations (694 of its 818 pairs live)."""
+def near_retract(params, n, scale, rng):
+    """`n` configurations of a floating-base robot: its retract configuration
+    with normal offsets of `scale` rad on every joint past the six base dof."""
+    body = torch.as_tensor((np.arange(params.n_dof) >= 6).astype(np.float32), device=DEV)
+    z = torch.as_tensor(rng.normal(0.0, scale, (n, params.n_dof)).astype(np.float32), device=DEV)
+    return params.retract_config + z * body
+
+
+def sc_shapes(g1_q=None, franka_q=None):
+    """The four shapes of phase `sc_kernels` as (label, kinematics,
+    configurations): the G1 line search (`g1_q`: 4800 configurations, the G1
+    solve's own seeds at its 3 line-search scales), the retarget robot's
+    global frame (MPPI: 32 particles x 24 seeds) and one local frame (a line
+    search at B = 1: 7 candidates), and the Franka at 3200 configurations
+    (`franka_q`, the IK seeds; 694 of its 818 pairs live). Without `g1_q` and
+    `franka_q` (timing without a solve, as `tools/torch_sc_kernels_ab.py`
+    does) they are 4800 G1 configurations near its retract configuration
+    and 3200 Franka configurations over its joint range."""
     kg = ct.Kinematics.from_robot_yaml(ct.robot_config_path("unitree_g1"))
     kr = ct.Kinematics.from_robot_yaml(ct.robot_config_path("unitree_g1_29dof_retarget"))
     kf = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"))
+    if g1_q is None or franka_q is None:
+        rng = np.random.RandomState(5)
+        g1_q = near_retract(kg.params, 4800, 0.3, rng)
+        lo, hi = kf.params.dof_clip_bounds(np.pi)
+        qf = rng.uniform(lo, hi, (N_GOALS * N_SEEDS, kf.params.n_dof)).astype(np.float32)
+        franka_q = torch.as_tensor(qf, device=DEV)
     rng = np.random.RandomState(3)
-    pr = kr.params
-    body = torch.as_tensor((np.arange(pr.n_dof) >= 6).astype(np.float32), device=DEV)
+    return [("g1/line_search", kg, g1_q),
+            ("retarget/global_frame", kr, near_retract(kr.params, 32 * 24, 0.3, rng)),
+            ("retarget/local_frame", kr, near_retract(kr.params, 7, 0.3, rng)),
+            ("franka", kf, franka_q)]
 
-    def near_retract(n, scale):
-        z = torch.as_tensor(rng.normal(0.0, scale, (n, pr.n_dof)).astype(np.float32), device=DEV)
-        return pr.retract_config + z * body
 
-    cases = [
-        sc_case("g1/line_search", kg.params.self_collision,
-                kg.compute_kinematics(g1_q).spheres),
-        sc_case("retarget/global_frame", pr.self_collision,
-                kr.compute_kinematics(near_retract(32 * 24, 0.3)).spheres),
-        sc_case("retarget/local_frame", pr.self_collision,
-                kr.compute_kinematics(near_retract(7, 0.3)).spheres),
-        sc_case("franka", kf.params.self_collision, kf.compute_kinematics(franka_q).spheres),
-    ]
+def sc_phase(g1_q, franka_q):
+    """Phase `sc_kernels`: the pair kernels at the four shapes of
+    `sc_shapes` (at the local frame's 7 candidates the pairs are split over
+    blocks)."""
+    cases = [sc_case(label, kin.params.self_collision, kin.compute_kinematics(q).spheres)
+             for label, kin, q in sc_shapes(g1_q, franka_q)]
     return dict(phase="sc_kernels", limits=dict(
         cost_rel_median=COST_MED, cost_rel_p99=COST_P99, grad_rel_median_nonzero=COST_MED,
         grad_rel_p99_nonzero=COST_P99, grad_max_abs_err_over_max=SC_GRAD_MAX_REL,
@@ -2038,7 +2116,7 @@ def main():
     quick = "--quick" in sys.argv[1:]
     t_start = time.perf_counter()
     torch.cuda.set_device(DEV)
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    out_dir = OUT_DIR
     os.makedirs(out_dir, exist_ok=True)
     try:
         alone = [a for a in sys.argv[1:] if a in ("--g1", "--retarget")]
@@ -2055,11 +2133,12 @@ def main():
             fh.write("".join(l + "\n" for l in LOG_LINES))
 
 
-# the kernels whose spills fail the build, by library (ptxas names; the pair
-# forward is a template: ILb0E the sum, ILb1E the maximum)
+# the kernels whose spills fail the build, by library (ptxas names; every
+# pair kernel is a template per candidates-per-warp width, and the forward's
+# ILb0E is the sum, ILb1E the maximum: a name matches all its instances)
 NO_SPILL = {"ik_kernels": ("ik_solve_kernel",), "traj_kernels": ("traj_solve_kernel",),
-            "self_collision": ("sc_pair_reduce_kernelILb0E", "sc_pair_reduce_kernelILb1E",
-                               "sc_pair_grad_kernel")}
+            "self_collision": ("sc_fwd_kernelILb0E", "sc_fwd_kernelILb1E", "sc_grad_kernel",
+                               "sc_sum_parts_kernel")}
 
 
 def build_phase(out_dir, names=None):
@@ -2082,6 +2161,19 @@ def build_phase(out_dir, names=None):
     return line, ptx, secs
 
 
+def sc_ptxas_entries(ptx, kernel):
+    """Registers and spills of each instance of a pair kernel (one per
+    candidates-per-warp width: ...Li32E... is cw 32)."""
+    out = {}
+    for fn, v in ptx.items():
+        m = re.search(r"Li(\d+)EE", fn)
+        if kernel in fn and ":" not in fn and m:
+            out[f"cw{m.group(1)}"] = dict(registers=v.get("registers"),
+                                          spill_stores=v.get("spill_stores", 0),
+                                          spill_loads=v.get("spill_loads", 0))
+    return out
+
+
 def sc_kernel_lines(sc, g1, generic, rt, ptx):
     """The `kernels` entries of the three pair kernels: times at the G1 line
     search (the main fields), the retarget robot's global and local frames
@@ -2092,8 +2184,8 @@ def sc_kernel_lines(sc, g1, generic, rt, ptx):
                                          "retarget/local_frame", "franka"))
     err_key = dict(sc_pair_cost="max_abs_err_cost", sc_pair_grad="max_abs_err_grad",
                    sc_pair_viol="max_abs_err_viol")
-    ptx_name = dict(sc_pair_cost="sc_pair_reduce_kernelILb0E", sc_pair_grad="sc_pair_grad_kernel",
-                    sc_pair_viol="sc_pair_reduce_kernelILb1E")
+    ptx_name = dict(sc_pair_cost="sc_fwd_kernelILb0E", sc_pair_grad="sc_grad_kernelI",
+                    sc_pair_viol="sc_fwd_kernelILb1E")
     replaces = dict(sc_pair_cost="curobo_tpu/ops/pallas_ik.py:710",
                     sc_pair_grad="curobo_tpu/ops/pallas_ik.py:710",
                     sc_pair_viol="curobo_tpu/ops/pallas_ik.py:789")
@@ -2115,18 +2207,24 @@ def sc_kernel_lines(sc, g1, generic, rt, ptx):
             launches_retarget_per_part=per_part,
             launches_g1_phase=g1["pair_kernel_launches"][k],
             launches_generic_phase=generic["pair_kernel_launches"][k],
+            device_ms=g["device_ms"][k], device_ms_retarget_global=rg["device_ms"][k],
+            device_ms_retarget_local=rl["device_ms"][k], device_ms_franka=fr["device_ms"][k],
             shape_retarget_global=shape(rg), ms_retarget_global=rg["ms"][k],
             plain_ms_retarget_global=rg["plain_ms"][k], bound_ms_retarget_global=rg["bound_ms"][k],
             shape_retarget_local=shape(rl), ms_retarget_local=rl["ms"][k],
             plain_ms_retarget_local=rl["plain_ms"][k], bound_ms_retarget_local=rl["bound_ms"][k],
             shape_franka=shape(fr), ms_franka=fr["ms"][k], plain_ms_franka=fr["plain_ms"][k],
             bound_ms_franka=fr["bound_ms"][k],
-            ptxas=ptxas_of(ptx, ptx_name[k]))
+            redesigned="PR 8", geometry={c["case"]: c["geometry"] for c in sc["cases"]},
+            # the G1 shape runs the 32-candidates-per-warp instance
+            ptxas=ptxas_of(ptx, ptx_name[k] + "Li32E"),
+            ptxas_per_entry=sc_ptxas_entries(ptx, ptx_name[k]))
         if k == "sc_pair_grad":
             line.update(also_replaces="the custom_vjp backward of sc_matmul_cost",
                         plain_is="the chunked scatter (index_add_) of the plain sum",
-                        plain_ms_gather=g["plain_ms"]["sc_pair_grad_gather"],
-                        bound_ms_as_executed=g["bound_ms_grad_as_executed"])
+                        plain_ms_tiled=g["plain_ms"]["sc_pair_grad_tiled"],
+                        bound_ms_as_executed=g["bound_ms_grad_as_executed"],
+                        bound_ms_as_executed_retarget_local=rl["bound_ms_grad_as_executed"])
         lines.append(line)
     return lines
 

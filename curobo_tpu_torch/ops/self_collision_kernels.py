@@ -9,25 +9,31 @@ custom_vjp) and `sc_matmul_viol` (:789). Three CUDA kernels written by hand for
 - `sc_pair_cost`: per candidate, the sum over live pairs of
   max(margin + activation - dist, 0);
 - `sc_pair_grad`: its gradient with respect to the sphere positions, scaled by
-  the upstream gradient of each candidate, gathered per sphere from an
-  incidence list (no atomics, the same bits at every launch);
+  the upstream gradient of each candidate, gathered per sphere tile from its
+  partner tiles (no atomics, the same bits at every launch);
 - `sc_pair_viol`: per candidate, the largest max(margin - dist, 0).
 
-They take the positions sphere-major, (S, 3, N), and the live pairs of a
-`PairTables`, built once per robot and device (`pair_tables`). The distance
-is the generic path's sqrt(max(d2, 1e-12)).
+They take the positions sphere-major, (S, 3, N), and the tile tables of a
+`PairTables`, built once per robot and device (`pair_tables`): the spheres cut
+into tiles of `SC_TS`, the live tile pairs with a dense margin block each
+(`tile_tables`). How a launch is cut into blocks (`launch_geometry`) depends on
+N, S and the tables' shape only. The distance is the generic path's
+sqrt(max(d2, 1e-12)).
 
-Beside them stand their plain PyTorch versions over the same tables: the
-chunked hinge sum, its chunked scatter gradient and the chunked violation of
-the generic objective (`sc_pair_cost_plain`, `sc_pair_grad_plain`,
+Beside them stand their plain PyTorch versions: the chunked hinge sum, its
+chunked scatter gradient and the chunked violation of the generic objective
+over the live-pair list (`sc_pair_cost_plain`, `sc_pair_grad_plain`,
 `sc_pair_viol_plain`: the pairs in chunks of `_CHUNK`, as the JAX package's
 `lax.scan` does, since a humanoid's pair list gathered at once at an
-optimizer's batch is tens of GB), and the gradient gathered per sphere in the
-kernel's order (`sc_pair_grad_gather_plain`). A wrapper takes the plain
-version only for a tensor that lies on the CPU; for a CUDA tensor it launches
-the kernel or raises. Each wrapper counts its launches in `.launches`. The
-generic objective (`geom/self_collision.py`) calls `pair_hinge_sum`, an
-autograd Function over the cost and gradient wrappers, and `pair_violation`.
+optimizer's batch is tens of GB), the gradient gathered per sphere from an
+incidence list (`sc_pair_grad_gather_plain`), and the three walked over the
+tile tables in the kernels' order of tiles, groups and splits
+(`sc_pair_cost_tiled_plain`, `sc_pair_grad_tiled_plain`,
+`sc_pair_viol_tiled_plain`). A wrapper takes the plain version only for a
+tensor that lies on the CPU; for a CUDA tensor it launches the kernel or
+raises. Each wrapper counts its launches in `.launches`. The generic objective
+(`geom/self_collision.py`) calls `pair_hinge_sum`, an autograd Function over
+the cost and gradient wrappers, and `pair_violation`.
 """
 
 from __future__ import annotations
@@ -118,12 +124,17 @@ def _violation_chunks(pt, pair_a, pair_b, margin) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Pair tables of the kernels
 # ---------------------------------------------------------------------------
+# Spheres per tile of the kernels (SC_TS, ops/csrc/self_collision.cu).
+SC_TS = 32
+
+
 @dataclasses.dataclass(frozen=True)
 class PairTables:
-    """The live pairs of a robot (finite margin) in pair order, and per sphere
-    its incidence list in CSR form: entries [inc_off[s], inc_off[s + 1]) hold
-    the index of each live pair that sphere s is an end of, in pair order,
-    and the end's sign (+1 first end, -1 second)."""
+    """The live pairs of a robot (finite margin) in pair order; per sphere its
+    incidence list in CSR form: entries [inc_off[s], inc_off[s + 1]) hold the
+    index of each live pair that sphere s is an end of, in pair order, and the
+    end's sign (+1 first end, -1 second); and the kernels' tile tables
+    (`tile_tables`)."""
 
     pair_a: torch.Tensor  # (P,) int32
     pair_b: torch.Tensor  # (P,) int32
@@ -131,11 +142,25 @@ class PairTables:
     inc_off: torch.Tensor  # (S + 1,) int32
     inc_pair: torch.Tensor  # (2 P,) int32
     inc_sign: torch.Tensor  # (2 P,) int8
+    tile_ij: torch.Tensor  # (L, 2) int32: live tiles (I, J), I <= J, in (I, J) order
+    tile_margin: torch.Tensor  # (L, SC_TS, SC_TS) float32, [j][i]
+    nb_off: torch.Tensor  # (T + 1,) int32: partners of sphere tile I at [nb_off[I], nb_off[I + 1])
+    nb_tile: torch.Tensor  # (2 L - diagonal tiles,) int32: the partner tile J, in order
+    nb_margin: torch.Tensor  # (same, SC_TS, SC_TS) float32, [j][i]
     S: int
+    max_partners: int  # the longest partner list of a sphere tile
 
     @property
     def P(self) -> int:
         return self.pair_a.shape[0]
+
+    @property
+    def L(self) -> int:
+        return self.tile_ij.shape[0]
+
+    @property
+    def n_tiles(self) -> int:
+        return self.nb_off.shape[0] - 1
 
     @property
     def device(self) -> torch.device:
@@ -154,6 +179,54 @@ def incidence_lists(S: int, pa: np.ndarray, pb: np.ndarray):
     off = np.zeros(S + 1, np.int32)
     np.cumsum(np.bincount(src, minlength=S), out=off[1:])
     return off, k[order].astype(np.int32), sign[order]
+
+
+def tile_tables(S: int, pa: np.ndarray, pb: np.ndarray, margin: np.ndarray, ts: int = SC_TS):
+    """The kernels' tables of the live pairs (pa, pb, margin), spheres cut
+    into T = ceil(S / ts) tiles:
+
+    - tile_ij (L, 2): the tiles (I, J), I <= J, that hold a live pair, in
+      (I, J) order; tile_margin (L, ts, ts): at [k, j, i] the margin of the
+      pair (I ts + i, J ts + j), -inf where there is none (a pair within one
+      tile sits at i < j);
+    - per sphere tile I its partner tiles in order (a CSR, nb_off (T + 1,),
+      nb_tile): every tile that shares a live tile with I, I itself once;
+      nb_margin at [e, j, i] the margin of the pair {I ts + i, J ts + j}.
+
+    Raises on a pair of a sphere with itself or a pair listed twice."""
+    T = -(-S // ts)
+    a = np.minimum(pa, pb).astype(np.int64)
+    b = np.maximum(pa, pb).astype(np.int64)
+    if np.any(a == b):
+        raise ValueError("the pair list holds a pair of a sphere with itself")
+    ta, tb = a // ts, b // ts
+    keys, tile_of = np.unique(ta * T + tb, return_inverse=True)
+    L = keys.shape[0]
+    tile_ij = np.stack([keys // T, keys % T], axis=1).astype(np.int32) if L else np.zeros((0, 2), np.int32)
+    slot = (tile_of.reshape(-1) * ts + b % ts) * ts + a % ts
+    if np.unique(slot).shape[0] != slot.shape[0]:
+        raise ValueError("the pair list holds a sphere pair twice")
+    fwd = np.full((L, ts, ts), -np.inf, np.float32)
+    fwd.reshape(-1)[slot] = margin
+    I, J = tile_ij[:, 0].astype(np.int64), tile_ij[:, 1].astype(np.int64)
+    off_diag = np.flatnonzero(I != J)
+    # each live tile once from its row tile I and, off the diagonal, once
+    # from its column tile J with the block transposed
+    rows = np.concatenate([I, J[off_diag]])
+    cols = np.concatenate([J, I[off_diag]])
+    src = np.concatenate([np.arange(L), off_diag])
+    trans = np.concatenate([np.zeros(L, bool), np.ones(off_diag.shape[0], bool)])
+    order = np.lexsort((cols, rows))
+    rows, cols, src, trans = rows[order], cols[order], src[order], trans[order]
+    blk = fwd[src]
+    blk_t = blk.transpose(0, 2, 1)
+    diag = rows == cols
+    nb_margin = np.where(trans[:, None, None], blk_t, blk)
+    nb_margin[diag] = np.maximum(blk[diag], blk_t[diag])  # the two halves are disjoint
+    nb_off = np.zeros(T + 1, np.int32)
+    np.cumsum(np.bincount(rows, minlength=T), out=nb_off[1:])
+    return dict(tile_ij=tile_ij, tile_margin=fwd, nb_off=nb_off, nb_tile=cols.astype(np.int32),
+                nb_margin=np.ascontiguousarray(nb_margin, dtype=np.float32))
 
 
 # pair_margin -> {device: (pair_a, tables)}; an entry goes with its margin
@@ -175,14 +248,55 @@ def pair_tables(sc: SelfCollisionParams, n_spheres: int, device) -> PairTables:
     pa = sc.pair_a.cpu().numpy().astype(np.int32)[live]
     pb = sc.pair_b.cpu().numpy().astype(np.int32)[live]
     off, k, sign = incidence_lists(n_spheres, pa, pb)
+    tiles = tile_tables(int(n_spheres), pa, pb, margin[live])
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
     tab = PairTables(pair_a=t(pa), pair_b=t(pb), margin=t(margin[live]), inc_off=t(off),
-                     inc_pair=t(k), inc_sign=t(sign), S=int(n_spheres))
+                     inc_pair=t(k), inc_sign=t(sign), S=int(n_spheres),
+                     max_partners=int(np.diff(tiles["nb_off"]).max(initial=0)),
+                     **{name: t(a) for name, a in tiles.items()})
     per_device[str(device)] = (sc.pair_a, tab)
     return tab
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry
+# ---------------------------------------------------------------------------
+# Blocks one wave of the card holds: 132 SMs x 5 resident blocks (44 KB of
+# shared memory each, ops/csrc/self_collision.cu). The forward aims at
+# _FWD_WAVES waves so that its last wave is short; the gradient splits a
+# sphere tile's partner list only until one wave is full, since every split
+# adds a partial of the whole gradient.
+_WAVE_BLOCKS = 132 * 5
+_FWD_WAVES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchGeometry:
+    cw: int  # candidates per warp: the smallest power of two >= N, at most 32
+    columns: int  # blocks along the candidates, ceil(N / cw)
+    groups: int  # forward: runs of per_group live tiles, one block row each
+    per_group: int
+    splits: int  # gradient: runs of a sphere tile's partner list
+
+
+def launch_geometry(N: int, S: int, n_live_tiles: int, max_partners: int) -> LaunchGeometry:
+    """How the pair kernels cut a launch of N candidates over S spheres: a
+    function of the shapes only, so the bits of a result are too."""
+    cw = 32 if N >= 32 else 1 << max(0, N - 1).bit_length()
+    columns = -(-N // cw)
+    L = max(1, n_live_tiles)
+    g = min(L, max(1, -(-_FWD_WAVES * _WAVE_BLOCKS // max(1, columns))))
+    per = -(-L // g)
+    T = max(1, -(-S // SC_TS))
+    splits = min(max(1, max_partners), max(1, -(-_WAVE_BLOCKS // (T * max(1, columns)))))
+    return LaunchGeometry(cw=cw, columns=columns, groups=-(-L // per), per_group=per, splits=splits)
+
+
+def geometry_of(tab: PairTables, N: int) -> LaunchGeometry:
+    return launch_geometry(N, tab.S, tab.L, tab.max_partners)
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +321,7 @@ def sc_pair_grad_plain(
 def sc_pair_grad_gather_plain(
     tab: PairTables, pt: torch.Tensor, grad_out: torch.Tensor, activation: float
 ) -> torch.Tensor:
-    """The gradient in the kernel's order: every sphere sums its incidence
+    """The gradient gathered per sphere: every sphere sums its incidence
     list's terms in pair order; a live pair adds -(g / dist) d to its first
     end and +(g / dist) d to its second, d = p_a - p_b. Chunks of entries are
     added in order (the CPU's `index_add_` runs over its index in order)."""
@@ -227,6 +341,88 @@ def sc_pair_grad_gather_plain(
     return grad
 
 
+def _tile_positions(tab: PairTables, pt: torch.Tensor) -> torch.Tensor:
+    """pt (S, 3, N) -> (T, SC_TS, 3, N), zeros past the last sphere."""
+    T, N = tab.n_tiles, pt.shape[2]
+    if T * SC_TS == tab.S:
+        return pt.reshape(T, SC_TS, 3, N)
+    out = pt.new_zeros((T * SC_TS, 3, N))
+    out[: tab.S] = pt
+    return out.reshape(T, SC_TS, 3, N)
+
+
+def _tile_dist(pi: torch.Tensor, pj: torch.Tensor):
+    """Differences p_i - p_j (SC_TS j, SC_TS i, 3, N), squared distance and
+    distance (j, i, N) of two tiles' spheres."""
+    d = pi.unsqueeze(0) - pj.unsqueeze(1)
+    d2 = d[:, :, 0] * d[:, :, 0]
+    d2.addcmul_(d[:, :, 1], d[:, :, 1]).addcmul_(d[:, :, 2], d[:, :, 2])
+    return d, d2, d2.clamp_min(1e-12).sqrt()
+
+
+def _forward_tiled(tab: PairTables, pt: torch.Tensor, activation: float, is_max: bool) -> torch.Tensor:
+    """The forward over the tile tables in the kernel's order: the live tiles
+    cut into the launch's groups, each group's tiles in (I, J) order, the
+    groups added (or maxed) in order. A dead slot (-inf margin) adds 0."""
+    N = pt.shape[2]
+    geo = geometry_of(tab, N)
+    tp = _tile_positions(tab, pt)
+    tiles = tab.tile_ij.tolist()
+    out = pt.new_zeros((N,))
+    with torch.no_grad():
+        for g in range(geo.groups):
+            acc = pt.new_zeros((N,))
+            for k in range(g * geo.per_group, min(tab.L, (g + 1) * geo.per_group)):
+                I, J = tiles[k]
+                _, _, dist = _tile_dist(tp[I], tp[J])
+                h = (tab.tile_margin[k] + activation).unsqueeze(-1) - dist
+                if is_max:
+                    acc = torch.maximum(acc, h.amax(dim=(0, 1)))
+                else:
+                    acc = acc + h.clamp_min(0.0).sum(dim=(0, 1))
+            out = torch.maximum(out, acc) if is_max else out + acc
+    return out
+
+
+def sc_pair_cost_tiled_plain(tab: PairTables, pt: torch.Tensor, activation: float) -> torch.Tensor:
+    """The hinge sum walked over the tile tables in `sc_pair_cost`'s order of
+    tiles and groups (within a tile, PyTorch's order)."""
+    return _forward_tiled(tab, pt, float(activation), False)
+
+
+def sc_pair_viol_tiled_plain(tab: PairTables, pt: torch.Tensor) -> torch.Tensor:
+    """The largest violation walked over the tile tables as `sc_pair_viol`
+    walks them."""
+    return _forward_tiled(tab, pt, 0.0, True)
+
+
+def sc_pair_grad_tiled_plain(
+    tab: PairTables, pt: torch.Tensor, grad_out: torch.Tensor, activation: float
+) -> torch.Tensor:
+    """The gradient walked over the tile tables in `sc_pair_grad`'s order:
+    per sphere tile I its partner tiles in order, cut into the launch's
+    splits, the splits added in order. A live pair (dist < margin + act,
+    d2 > 1e-12) adds -(g / dist) (p_s - p_q) to each end s, q the other."""
+    S, _, N = pt.shape
+    geo = geometry_of(tab, N)
+    tp = _tile_positions(tab, pt)
+    off, partner = tab.nb_off.tolist(), tab.nb_tile.tolist()
+    grad = pt.new_zeros((tab.n_tiles, SC_TS, 3, N))
+    with torch.no_grad():
+        for I in range(tab.n_tiles):
+            e0, e1 = off[I], off[I + 1]
+            per = -(-(e1 - e0) // geo.splits)
+            for sp in range(geo.splits):
+                acc = pt.new_zeros((SC_TS, 3, N))
+                for e in range(min(e1, e0 + sp * per), min(e1, e0 + (sp + 1) * per)):
+                    d, d2, dist = _tile_dist(tp[I], tp[partner[e]])
+                    live = (dist < (tab.nb_margin[e] + activation).unsqueeze(-1)) & (d2 > 1e-12)
+                    c = torch.where(live, grad_out / dist, 0.0)
+                    acc = acc - (c.unsqueeze(2) * d).sum(dim=0)
+                grad[I] += acc
+    return grad.reshape(-1, 3, N)[:S].contiguous()
+
+
 # ---------------------------------------------------------------------------
 # The kernels
 # ---------------------------------------------------------------------------
@@ -241,13 +437,11 @@ def _lib():
 
         lib = load_library(_LIB_NAME)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sc_forward_scratch_words.argtypes = [ci, ci]
-        lib.sc_forward_scratch_words.restype = ctypes.c_longlong
-        lib.sc_pair_cost_launch.argtypes = [vp] * 4 + [cf, ci, ci, vp, vp, vp]
+        lib.sc_pair_cost_launch.argtypes = [vp] * 3 + [cf] + [ci] * 6 + [vp] * 3
         lib.sc_pair_cost_launch.restype = ci
-        lib.sc_pair_viol_launch.argtypes = [vp] * 4 + [ci, ci, vp, vp, vp]
+        lib.sc_pair_viol_launch.argtypes = [vp] * 3 + [ci] * 6 + [vp] * 3
         lib.sc_pair_viol_launch.restype = ci
-        lib.sc_pair_grad_launch.argtypes = [vp] * 8 + [cf, ci, ci, vp, vp]
+        lib.sc_pair_grad_launch.argtypes = [vp] * 5 + [cf] + [ci] * 5 + [vp] * 3
         lib.sc_pair_grad_launch.restype = ci
         _lib_ready = lib
     return _lib_ready
@@ -272,9 +466,27 @@ def _stream(pt: torch.Tensor):
     return torch.cuda.current_stream(pt.device).cuda_stream
 
 
-def _forward_scratch(lib, tab: PairTables, pt: torch.Tensor):
-    words = lib.sc_forward_scratch_words(pt.shape[2], tab.P)
+def _scratch(words: int, pt: torch.Tensor):
     return None if words == 0 else torch.empty((words,), dtype=torch.float32, device=pt.device)
+
+
+def _forward(name: str, tab: PairTables, pt: torch.Tensor, activation) -> torch.Tensor:
+    """Launch `sc_pair_cost` (activation a float) or `sc_pair_viol` (None):
+    the groups' partials go to scratch and a second pass adds them."""
+    lib = _lib()
+    N = pt.shape[2]
+    geo = geometry_of(tab, N)
+    out = torch.empty((N,), dtype=torch.float32, device=pt.device)
+    with torch.cuda.device(pt.device):
+        scratch = _scratch(geo.groups * N if geo.groups > 1 else 0, pt)
+        args = [pt.data_ptr(), tab.tile_ij.data_ptr(), tab.tile_margin.data_ptr()]
+        args += [] if activation is None else [float(activation)]
+        args += [N, tab.S, tab.L, geo.cw, geo.groups, geo.per_group,
+                 None if scratch is None else scratch.data_ptr(), out.data_ptr(), _stream(pt)]
+        err = getattr(lib, name + "_launch")(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
 
 
 def sc_pair_cost(tab: PairTables, pt: torch.Tensor, activation: float) -> torch.Tensor:
@@ -283,19 +495,8 @@ def sc_pair_cost(tab: PairTables, pt: torch.Tensor, activation: float) -> torch.
     _check(tab, pt)
     if pt.device.type == "cpu":
         return sc_pair_cost_plain(tab, pt, activation)
-    lib = _lib()
-    N = pt.shape[2]
-    cost = torch.empty((N,), dtype=torch.float32, device=pt.device)
-    with torch.cuda.device(pt.device):
-        scratch = _forward_scratch(lib, tab, pt)
-        err = lib.sc_pair_cost_launch(
-            pt.data_ptr(), tab.pair_a.data_ptr(), tab.pair_b.data_ptr(), tab.margin.data_ptr(),
-            float(activation), N, tab.P, None if scratch is None else scratch.data_ptr(),
-            cost.data_ptr(), _stream(pt),
-        )
+    cost = _forward("sc_pair_cost", tab, pt, float(activation))
     sc_pair_cost.launches += 1
-    if err != 0:
-        raise RuntimeError(f"sc_pair_cost kernel launch failed: CUDA error {err}")
     return cost
 
 
@@ -313,16 +514,18 @@ def sc_pair_grad(
         return sc_pair_grad_plain(tab, pt, grad_out, activation)
     lib = _lib()
     S, _, N = pt.shape
+    geo = geometry_of(tab, N)
     grad = torch.empty_like(pt)
     with torch.cuda.device(pt.device):
+        scratch = _scratch(geo.splits * pt.numel() if geo.splits > 1 else 0, pt)
         err = lib.sc_pair_grad_launch(
-            pt.data_ptr(), grad_out.data_ptr(), tab.pair_a.data_ptr(), tab.pair_b.data_ptr(),
-            tab.margin.data_ptr(), tab.inc_off.data_ptr(), tab.inc_pair.data_ptr(),
-            tab.inc_sign.data_ptr(), float(activation), N, S, grad.data_ptr(), _stream(pt),
+            pt.data_ptr(), grad_out.data_ptr(), tab.nb_off.data_ptr(), tab.nb_tile.data_ptr(),
+            tab.nb_margin.data_ptr(), float(activation), N, S, tab.L, geo.cw, geo.splits,
+            None if scratch is None else scratch.data_ptr(), grad.data_ptr(), _stream(pt),
         )
-    sc_pair_grad.launches += 1
     if err != 0:
         raise RuntimeError(f"sc_pair_grad kernel launch failed: CUDA error {err}")
+    sc_pair_grad.launches += 1
     return grad
 
 
@@ -336,19 +539,8 @@ def sc_pair_viol(tab: PairTables, pt: torch.Tensor) -> torch.Tensor:
     _check(tab, pt)
     if pt.device.type == "cpu":
         return sc_pair_viol_plain(tab, pt)
-    lib = _lib()
-    N = pt.shape[2]
-    viol = torch.empty((N,), dtype=torch.float32, device=pt.device)
-    with torch.cuda.device(pt.device):
-        scratch = _forward_scratch(lib, tab, pt)
-        err = lib.sc_pair_viol_launch(
-            pt.data_ptr(), tab.pair_a.data_ptr(), tab.pair_b.data_ptr(), tab.margin.data_ptr(),
-            N, tab.P, None if scratch is None else scratch.data_ptr(), viol.data_ptr(),
-            _stream(pt),
-        )
+    viol = _forward("sc_pair_viol", tab, pt, None)
     sc_pair_viol.launches += 1
-    if err != 0:
-        raise RuntimeError(f"sc_pair_viol kernel launch failed: CUDA error {err}")
     return viol
 
 

@@ -17,8 +17,9 @@ difference at most 1e-5 of the largest gradient entry, so that one wrong
 sphere shows; violation 1e-6 m (the matmul mode's distance is
 sqrt(d2 + 1e-12), the port's sqrt(max(d2, 1e-12))).
 
-Also held: the kernels' incidence tables, the plain gather-by-sphere gradient
-(the kernel's order) against the plain scatter, the wrappers' input checks,
+Also held: the plain versions that walk the kernels' tile tables in their
+order (`sc_pair_*_tiled_plain`) against the matmul mode, the incidence
+tables, the plain gather-by-sphere gradient against the plain scatter, the wrappers' input checks,
 and that a CPU tensor never loads the CUDA library. The kernels themselves
 are held against these plain versions on the card by `chip_smoke.py` (phase
 `sc_kernels`).
@@ -136,6 +137,31 @@ def test_plain_versions_over_the_tables_match_the_matmul_mode(robot):
     _grad_agrees(sck.sc_pair_grad_gather_plain(tab, pt, up, robot["act"]).numpy(), gj)
     np.testing.assert_allclose(sck.sc_pair_viol_plain(tab, pt).numpy(), np.maximum(vj, 0.0),
                                rtol=0, atol=VIOL_ATOL)
+
+
+def test_tiled_plain_versions_match_the_matmul_mode(robot):
+    """The plain versions that walk the tile tables in the kernels' order
+    (`sc_pair_*_tiled_plain`) against `sc_matmul_cost`, its VJP and
+    `sc_matmul_viol`, at all N candidates and at 7 (where a warp's lanes take
+    several partner spheres and the gradient splits its partner lists)."""
+    cj, gj, vj = _jax_sc(robot)
+    sc = robot["kt"].params.self_collision
+    pt = tsc._sphere_major(torch.as_tensor(robot["spheres"]))
+    tab = sck.pair_tables(sc, pt.shape[0], "cpu")
+    up = torch.as_tensor(robot["upstream"])
+    act = robot["act"]
+    np.testing.assert_allclose(sck.sc_pair_cost_tiled_plain(tab, pt, act).numpy(), cj,
+                               rtol=COST_RTOL, atol=1e-6)
+    _grad_agrees(sck.sc_pair_grad_tiled_plain(tab, pt, up, act).numpy(), gj)
+    np.testing.assert_allclose(sck.sc_pair_viol_tiled_plain(tab, pt).numpy(), np.maximum(vj, 0.0),
+                               rtol=0, atol=VIOL_ATOL)
+    # 7 candidates: the geometry of a retargeted local frame
+    assert sck.geometry_of(tab, 7).cw == 8
+    few = pt[..., :7].contiguous()
+    np.testing.assert_allclose(sck.sc_pair_cost_tiled_plain(tab, few, act).numpy(), cj[:7],
+                               rtol=COST_RTOL, atol=1e-6)
+    np.testing.assert_allclose(sck.sc_pair_viol_tiled_plain(tab, few).numpy(),
+                               np.maximum(vj[:7], 0.0), rtol=0, atol=VIOL_ATOL)
 
 
 def test_incidence_tables(robot):
