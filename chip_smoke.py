@@ -5,6 +5,8 @@
     python3 chip_smoke.py --quick    # build + kernel comparisons only
     python3 chip_smoke.py --g1       # phase `g1` alone
     python3 chip_smoke.py --retarget # phase `retarget` alone
+    python3 chip_smoke.py --torque   # phase `torque` alone
+    python3 chip_smoke.py --voxel    # phase `voxel` alone
 
 Builds the CUDA kernels from the sources in this checkout and holds each
 kernel against its plain PyTorch version on the card at the shapes of its
@@ -49,6 +51,18 @@ dof, 14 tool frames, 55 414 pairs): a 120-frame clip at B = 1, 64 clips of
 Halton sampler, as the reference's does: 245 dimensions of its 62), and the
 protocol of `examples/humanoid_retargeting.py` on `unitree_g1.yml` (gated at
 position error p90 < 20 mm and by the example's own limits).
+Phase `torque` plans the first 20 suite problems with the torque-limited
+config of `bench_motion.py --use-dynamics` (RNEA torque term, weight 100, a 3
+kg payload; success gated at 0.95), whose trajectory optimisation takes the
+generic route (one `ik_solve` an attempt, no trajectory kernel), holds the
+RNEA on the card against the CPU and estimates the RNEA's share of a plan.
+Phase `voxel` solves 100 goals x 32 seeds in a 96 x 96 x 80 ESDF of the
+table and the perception example's box (generic route; gated at the cuboid
+twin's success less 0.05), runs 20 MPC ticks while the box moves through
+`update_voxel_data` (feasible >= 0.9), holds the IK and trajectory kernels at
+an attached payload's tables and plans 10 suite problems holding it, and
+checks `evaluate_config_env` over two stacked worlds against the
+single-world calls.
 The traces and the compiler's `-Xptxas -v` logs are written to
 `chiprun_out/`. Every line of output is one JSON object, except the line with
 the card's name and power limit. Exits non-zero on the first failed phase, and
@@ -76,6 +90,7 @@ if not torch.cuda.is_available():
 
 import curobo_tpu_torch as ct
 from curobo_tpu_torch.geom import types as gt
+from curobo_tpu_torch.geom import world as twm
 from curobo_tpu_torch.ops import build as kbuild
 from curobo_tpu_torch.geom.self_collision import self_collision_distance
 from curobo_tpu_torch.ops import ik_kernels as ikk
@@ -2112,6 +2127,456 @@ def example_protocol(per_part):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Torque-limited motion generation (`bench_motion.py --use-dynamics`): the
+# RNEA torque term with a 3 kg payload, on the generic trajectory route
+# ---------------------------------------------------------------------------
+TORQUE_PROBLEMS = 20  # `bench.py:777`'s default
+TORQUE_WEIGHT, PAYLOAD_KG = 100.0, 3.0  # `bench_motion.py:86-97`
+TORQUE_GATE = 0.95
+# the card's RNEA against the CPU's on the same inputs, relative to the
+# largest |tau| (float32: another order of the same sums)
+RNEA_REL = 1e-4
+# after 10 problems the phase stops planning once it has run this long, or
+# once the whole script has (the run must end within 1200 s)
+TORQUE_DEADLINE_S, TORQUE_RUN_DEADLINE_S = 300.0, 560.0
+
+
+def torque_plan_config():
+    """The default `MotionPlanConfig()` with the JAX bench's torque term."""
+    base = ct.MotionPlanConfig()
+    t = base.trajopt
+    return dataclasses.replace(base, trajopt=dataclasses.replace(t, rollout=dataclasses.replace(
+        t.rollout, torque_limit_weight=TORQUE_WEIGHT, payload_mass=PAYLOAD_KG)))
+
+
+def payload_params(params, kg):
+    """The params of the torque term: the payload at the last link's CoM."""
+    mass = params.link_mass.clone()
+    mass[params.n_links - 1] += kg
+    return dataclasses.replace(params, link_mass=mass)
+
+
+def host_ms(fn, reps=10):
+    """Median host milliseconds of fn, the device synchronised after each."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def rnea_cost_ms(params, shape):
+    """Host ms of one torque term's RNEA, forward and forward + backward, on
+    random states of `shape` (..., D) on the card."""
+    gen = torch.Generator().manual_seed(5)
+    xs = [(torch.randn(shape, generator=gen) * s).to(DEV).requires_grad_(True)
+          for s in (1.0, 1.5, 5.0)]
+
+    def fwd():
+        with torch.no_grad():
+            ct.compute_inverse_dynamics(params, *xs)
+
+    def fwd_bwd():
+        tau = ct.compute_inverse_dynamics(params, *xs)
+        torch.autograd.grad(tau.square().sum(), xs)
+
+    return host_ms(fwd), host_ms(fwd_bwd)
+
+
+def rnea_check(kin):
+    """`compute_inverse_dynamics` on the card against the CPU on the same 4096
+    random Franka states, payload on."""
+    gen = torch.Generator().manual_seed(21)
+    n, D = 4096, kin.n_dof
+    q = torch.rand((n, D), generator=gen) * 2.6 - 1.3
+    qd = 1.5 * torch.randn((n, D), generator=gen)
+    qdd = 5.0 * torch.randn((n, D), generator=gen)
+    p = payload_params(kin.params, PAYLOAD_KG)
+    tau = ct.compute_inverse_dynamics(p, q.to(DEV), qd.to(DEV), qdd.to(DEV)).cpu()
+    ref = ct.compute_inverse_dynamics(p.to("cpu"), q, qd, qdd)
+    if not torch.isfinite(tau).all():
+        fail("compute_inverse_dynamics returned non-finite torques on the card")
+    rel = float((tau - ref).abs().max() / ref.abs().max())
+    out = dict(states=n, max_abs_err=float((tau - ref).abs().max()), rel_to_largest=rel,
+               largest_abs_tau=float(ref.abs().max()), limit=RNEA_REL)
+    if rel > RNEA_REL:
+        fail(f"compute_inverse_dynamics on the card disagrees with the CPU: {out}")
+    return out
+
+
+def torque_phase(kin, suite, out_dir, t_start):
+    """`MotionPlanner.plan_pose` with the torque-limited config over the first
+    TORQUE_PROBLEMS suite problems (B = 1, one warm-up plan): success (gate
+    TORQUE_GATE), plan ms, retry rate, the peak |tau| of each solved
+    trajectory with the payload (`bench_motion.py:101-117`), launches (one
+    `ik_solve` an attempt, no trajectory kernel: the torque term has no kernel
+    route); the RNEA on the card against the CPU; where a plan's time goes
+    (the RNEA's calls and their cost at the plan's shapes, and one plan under
+    `torch.profiler`)."""
+    import curobo_tpu_torch.rollout.robot_rollout as rr_mod
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    t_phase = time.perf_counter()
+    rnea = rnea_check(kin)
+    problems, cap = suite["problems"][:TORQUE_PROBLEMS], suite["cuboid_capacity"]
+    planner = ct.MotionPlanner(kin.params, torque_plan_config())
+    if planner.trajopt._solve_kernel is not None:
+        fail("the torque-limited trajectory optimiser built a trajectory kernel")
+    dyn = payload_params(planner.params, PAYLOAD_KG)
+    calls = {}
+    rnea_fn = rr_mod.compute_inverse_dynamics
+
+    def counted(params, q, *a, **k):  # the rollout's RNEA calls, by shape
+        calls[tuple(q.shape)] = calls.get(tuple(q.shape), 0) + 1
+        with record_function("rnea_forward"):
+            return rnea_fn(params, q, *a, **k)
+
+    def run(p, seed):
+        world, goal, start = problem_inputs(kin, p, cap)
+        t0 = time.perf_counter()
+        res = planner.plan_pose(world, goal, start, seed=seed)
+        res.trajectory.position.cpu()
+        return res, time.perf_counter() - t0, start
+
+    rr_mod.compute_inverse_dynamics = counted
+    try:
+        run(problems[0], 1000)  # warm-up
+        reset_counts()
+        calls.clear()
+        rows, cut = [], False
+        for i, p in enumerate(problems):
+            now = time.perf_counter()
+            if i >= 10 and (now - t_phase > TORQUE_DEADLINE_S
+                            or now - t_start > TORQUE_RUN_DEADLINE_S):
+                cut = True
+                break
+            before = counts()
+            res, dt_wall, start = run(p, i)
+            A = planner.last_attempts
+            d = {k: v - before[k] for k, v in counts().items()}
+            if d["ik_solve"] != A or d["traj_solve"] or d["traj_cost_grad"] or d["ik_cost_grad"]:
+                fail(f"torque problem {i}: {A} attempts launched {d}")
+            st = res.solver_trajectory
+            for name, t in (("trajectory", res.trajectory.position), ("solver position", st.position),
+                            ("solver velocity", st.velocity),
+                            ("solver acceleration", st.acceleration),
+                            ("position_error", res.position_error)):
+                if not torch.isfinite(t).all():
+                    fail(f"torque problem {i}: {name} has non-finite values")
+            with torch.no_grad():
+                tau = ct.compute_inverse_dynamics(dyn, st.position, st.velocity, st.acceleration)
+            over = (tau.abs() - dyn.joint_limits.effort).clamp_min(0.0)
+            rows.append(dict(success=bool(res.success[0]), plan_ms=dt_wall * 1e3, attempts=A,
+                             peak_tau=float(tau.abs().max()), over_effort=float(over.max()),
+                             motion_time=float(res.motion_time[0])))
+        launches, pair = counts(), sc_counts()
+        n_calls = dict(calls)
+        t_trace = time.perf_counter()
+        # one plan under the profiler: busy share, device time by name, the
+        # RNEA forward's host windows
+        world, goal, start = problem_inputs(kin, problems[-1], cap)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("torque_plan"):
+                planner.plan_pose(world, goal, start, seed=7).trajectory.position.cpu()
+    finally:
+        rr_mod.compute_inverse_dynamics = rnea_fn
+    path = os.path.join(out_dir, "torque_plan_trace.json")
+    prof.export_chrome_trace(path)
+    trace = trace_busy(path, "torque_plan", 1)
+    with open(path) as fh:
+        ev = json.load(fh)["traceEvents"]
+    fwd_windows = [e["dur"] for e in ev if e.get("ph") == "X" and e.get("name") == "rnea_forward"
+                   and e.get("cat") == "user_annotation"]
+    trace.update(rnea_forward_calls=len(fwd_windows),
+                 rnea_forward_host_ms=sum(fwd_windows) / 1e3)
+    os.remove(path)  # tens of MB; the numbers above are what it was kept for
+    trace["seconds"] = time.perf_counter() - t_trace  # the traced plan, export and reading
+
+    # the RNEA's share of a plan: its calls at each shape times its cost there
+    per_shape = []
+    est_ms = 0.0
+    for shape, n in sorted(n_calls.items(), key=lambda kv: -kv[1]):
+        f_ms, fb_ms = rnea_cost_ms(dyn, shape)
+        per_shape.append(dict(shape=list(shape), calls=n, fwd_ms=f_ms, fwd_bwd_ms=fb_ms))
+        est_ms += n * fb_ms  # each objective evaluation of the optimisers takes a gradient
+    okr = [r for r in rows if r["success"]]
+    t = np.asarray([r["plan_ms"] for r in rows])
+    peaks = [r["peak_tau"] for r in okr]
+    out = dict(
+        phase="torque", gpu=gpu_line(), problems_run=len(rows), cut_by_deadline=cut,
+        torque_limit_weight=TORQUE_WEIGHT, payload_kg=PAYLOAD_KG,
+        success_rate=len(okr) / len(rows), gate=TORQUE_GATE,
+        plan_ms_mean=float(t.mean()), plan_ms_median=float(np.median(t)),
+        plan_ms_p98=float(np.percentile(t, 98)),
+        retry_rate=float(np.mean([r["attempts"] > 1 for r in rows])),
+        peak_tau_max=max(peaks) if peaks else -1.0,
+        peak_tau_mean=float(np.mean(peaks)) if peaks else -1.0,
+        over_effort_max=max(r["over_effort"] for r in okr) if okr else -1.0,
+        motion_time_mean_s=float(np.mean([r["motion_time"] for r in okr])) if okr else -1.0,
+        launches=launches, pair_kernel_launches=pair, rnea_check=rnea,
+        rnea_calls=sum(n_calls.values()), rnea_per_shape=per_shape,
+        rnea_fwd_bwd_ms_estimate=est_ms,
+        rnea_share_estimate=est_ms / float(t.sum()) if len(t) else -1.0,
+        trace=trace, seconds=time.perf_counter() - t_phase)
+    if out["success_rate"] < TORQUE_GATE:
+        fail(f"torque-limited motion generation success {out['success_rate']} under "
+             f"{TORQUE_GATE}: {out}")
+    if launches["ik_solve"] < len(rows) or pair["sc_pair_cost"] < 1 or pair["sc_pair_grad"] < 1:
+        fail(f"torque phase: the kernels of its path did not launch: {launches} {pair}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Voxel-grid (ESDF) worlds: IK, MPC over a perception feed, an attached
+# payload, per-problem worlds
+# ---------------------------------------------------------------------------
+# the perception example's grid (`examples/perception_to_planning.py:59-60`),
+# centred at (0.4, 0, 0.4): x -0.8..1.6, y -1.2..1.2, z -0.6..1.4 m
+VOXEL_SHAPE, VOXEL_CELL, VOXEL_CENTER = (96, 96, 80), 0.025, (0.4, 0.0, 0.4)
+TABLE_BOX = ((-0.2, -0.6, -0.2), (1.0, 0.6, 0.0))  # table_scene()'s cuboid
+PERCEPTION_BOX = ((0.35, -0.15, 0.3), (0.55, 0.15, 0.6))  # the example's box
+VOXEL_REPS, VOXEL_MPC_TICKS, VOXEL_MPC_STEP = 5, 20, 0.01
+VOXEL_IK_MARGIN = 0.05  # success at least the cuboid twin's less this
+VOXEL_MPC_GATE = 0.9
+VOXEL_ENV_CONFIGS = 3200
+# the grasped box of `examples/attached_object.py`: 6 x 6 x 12 cm, 10 cm past the hand
+ATTACH_HALF, ATTACH_OFFSET, ATTACH_PROBLEMS = (0.03, 0.03, 0.06), (0.0, 0.0, 0.10), 10
+
+
+def box_sdf(x, boxes):
+    """Exact signed distance (numpy) of points x (..., 3) to the union of
+    axis-aligned boxes ((lo, hi), ...)."""
+    d = np.full(x.shape[:-1], np.inf, dtype=np.float32)
+    for lo, hi in boxes:
+        c = (np.asarray(lo, np.float32) + np.asarray(hi, np.float32)) / 2
+        h = (np.asarray(hi, np.float32) - np.asarray(lo, np.float32)) / 2
+        q = np.abs(x - c) - h
+        d = np.minimum(d, np.linalg.norm(np.maximum(q, 0), axis=-1) + np.minimum(q.max(-1), 0))
+    return d
+
+
+def voxel_centres():
+    dims = np.asarray(VOXEL_SHAPE) * VOXEL_CELL
+    axes = [VOXEL_CENTER[k] - dims[k] / 2 + VOXEL_CELL / 2 + VOXEL_CELL * np.arange(VOXEL_SHAPE[k])
+            for k in range(3)]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).astype(np.float32)
+
+
+def shifted(box, dy):
+    (lo, hi) = box
+    return ((lo[0], lo[1] + dy, lo[2]), (hi[0], hi[1] + dy, hi[2]))
+
+
+def voxel_world(data):
+    return ct.compile_scene(gt.Scene().add(gt.VoxelGridObstacle(
+        name="esdf", pose=list(VOXEL_CENTER) + [1, 0, 0, 0],
+        dims=[s * VOXEL_CELL for s in VOXEL_SHAPE], voxel_size=VOXEL_CELL, data=data)))
+
+
+def cuboid_twin():
+    """The voxel world's obstacles as cuboids."""
+    (lo, hi) = PERCEPTION_BOX
+    centre = [(a + b) / 2 for a, b in zip(lo, hi)]
+    return ct.compile_scene(table_scene().add(gt.Cuboid(
+        name="box", pose=centre + [1, 0, 0, 0], dims=[b - a for a, b in zip(lo, hi)])))
+
+
+def voxel_ik(kin, world_v, world_c, goals):
+    """(a) 100 goals x 32 seeds, the default `IKConfig()`, on the voxel world
+    (the generic route), against the same goals in the cuboid twin on the same
+    route (`use_pallas=False`)."""
+    solver = ct.IKSolver(kin.params)
+    res = solver.solve_pose(world_v, goals)  # warm-up
+    reset_counts()
+    ms = []
+    for i in range(VOXEL_REPS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = solver.solve_pose(world_v, goals, seed=i)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    launches, pair = counts(), sc_counts()
+    if any(launches.values()) or pair["sc_pair_cost"] < 1 or pair["sc_pair_grad"] < 1:
+        fail(f"voxel IK: launches {launches}, pair kernels {pair}")
+    for name in ("solution", "position_error", "cost"):
+        if not torch.isfinite(getattr(res, name)).all():
+            fail(f"voxel IK: non-finite {name}")
+    twin = ct.IKSolver(kin.params, ct.IKConfig(use_pallas=False)).solve_pose(world_c, goals)
+    # the voxel SDF against the analytic one at the solutions' live spheres
+    # inside the grid (a cell or more from its faces; outside it the grid
+    # reads its outside value, 10 m)
+    sph = kin.compute_kinematics(res.solution).spheres
+    half = torch.tensor([s * VOXEL_CELL / 2 - VOXEL_CELL for s in VOXEL_SHAPE], device=DEV)
+    inside = ((sph[..., :3] - torch.tensor(VOXEL_CENTER, device=DEV)).abs() < half).all(dim=-1)
+    keep = (sph[..., 3] >= 0) & inside
+    d_v = twm.sphere_sdf(world_v, sph[..., :3])[keep]
+    d_c = twm.sphere_sdf(world_c, sph[..., :3])[keep]
+    gap = (d_v - d_c).abs()
+    near = d_c.abs() < 0.1
+    ok = res.success
+    valid_c = ct.RobotSceneCollision(kin.params).validate(world_c, res.solution)
+    out = dict(goals=N_GOALS, seeds=solver.cfg.n_seeds, success_rate=float(ok.float().mean()),
+               success_cuboid_twin=float(twin.success.float().mean()),
+               ms_per_solve_median=statistics.median(ms), ms_per_solve_min=min(ms),
+               median_position_error=float(res.position_error.median()),
+               spheres_in_grid=int(keep.sum()), spheres_live=int((sph[..., 3] >= 0).sum()),
+               sdf_gap_max_m=float(gap.max()),
+               sdf_gap_max_within_10cm_m=float(gap[near].max()) if bool(near.any()) else -1.0,
+               solved_and_clear_of_the_cuboids=float((ok & valid_c).float().sum() /
+                                                     ok.float().sum().clamp_min(1)),
+               launches=launches, pair_kernel_launches=pair)
+    if out["success_rate"] < out["success_cuboid_twin"] - VOXEL_IK_MARGIN:
+        fail(f"voxel IK success under the cuboid twin's less {VOXEL_IK_MARGIN}: {out}")
+    return out
+
+
+def voxel_mpc(kin, base_data, table_d, x_vox):
+    """(b) VOXEL_MPC_TICKS `MPCSolver.step`s on the Franka (default
+    `MPCConfig()`, the MPC bench's start and goal) while the box moves 1 cm a
+    tick along y, fed through `update_voxel_data` (the perception path)."""
+    solver = ct.MPCSolver(kin.params)
+    world = voxel_world(base_data)
+    q0 = kin.params.retract_config[None]
+    st = kin.compute_kinematics(q0 + 0.3)
+    goal = solver.make_goal(ct.Pose(st.tool_pose.position[:, 0], st.tool_pose.quaternion[:, 0]))
+    js = ct.JointState.from_position(q0, kin.joint_names)
+    solver.step(world, goal, solver.setup(q0), js)  # warm-up
+    state = solver.setup(q0)
+    reset_counts()
+    ticks, feed = [], []
+    for t in range(VOXEL_MPC_TICKS):
+        t0 = time.perf_counter()
+        box = box_sdf(x_vox, (shifted(PERCEPTION_BOX, VOXEL_MPC_STEP * (t + 1)),))
+        world = world.update_voxel_data("esdf", torch.from_numpy(np.minimum(table_d, box)).to(DEV))
+        t1 = time.perf_counter()
+        res, state = solver.step(world, goal, state, js)
+        res.command.position.cpu()
+        t2 = time.perf_counter()
+        if not torch.isfinite(res.command.position).all():
+            fail(f"voxel MPC tick {t}: non-finite command")
+        js = ct.JointState(position=res.command.position, velocity=res.command.velocity)
+        ticks.append(dict(ms=(t2 - t1) * 1e3, feasible=bool(res.feasible[0])))
+        feed.append((t1 - t0) * 1e3)
+    launches, pair = counts(), sc_counts()
+    if any(launches.values()):
+        fail(f"voxel MPC launched IK or trajectory kernels: {launches}")
+    ms = [r["ms"] for r in ticks]
+    out = dict(ticks=len(ticks), tick_ms_median=statistics.median(ms), tick_ms_max=max(ms),
+               hz=1e3 / statistics.median(ms), feed_ms_median=statistics.median(feed),
+               feasible_rate=float(np.mean([r["feasible"] for r in ticks])), gate=VOXEL_MPC_GATE,
+               launches=launches, pair_kernel_launches=pair)
+    if out["feasible_rate"] < VOXEL_MPC_GATE:
+        fail(f"voxel MPC feasible rate {out['feasible_rate']} under {VOXEL_MPC_GATE}: {out}")
+    return out
+
+
+def attached_payload(kin, suite, goals):
+    """(c) the grasped box of `examples/attached_object.py` on the hand: both
+    IK kernels and `traj_cost_grad` against their plain versions at the
+    payload's tables, then `plan_pose` over the first ATTACH_PROBLEMS suite
+    problems on the kernel route (success not gated: the payload makes some
+    problems harder)."""
+    held = ct.AttachmentManager(kin.params).attach_box(kin.params, ATTACH_HALF, ATTACH_OFFSET)
+    planner = ct.MotionPlanner(held)
+    tab = planner.ik._ik_cost.tables
+    if tab.P <= ct.IKSolver(kin.params)._ik_cost.tables.P:
+        fail("the payload's spheres did not reach the IK kernels' pair table")
+    N = N_GOALS * N_SEEDS
+    gen = torch.Generator().manual_seed(17)
+    q = (torch.rand((N, kin.n_dof), generator=gen) * 2.6 - 1.3).to(DEV)
+    goal7 = torch.cat([goals.position, goals.quaternion], dim=-1)
+    goal7 = goal7[:, None].expand(N_GOALS, N_SEEDS, 7).reshape(N, 7).contiguous()
+    wt = ikk.pack_world_arrays(ct.compile_scene(table_scene()))
+    cg = compare_cost_grad(tab, wt, goal7, q, "payload/random")
+    tcfg = planner.cfg.trajopt
+    tt = tk.build_traj_tables(held, tcfg.rollout, tcfg.bspline, tcfg.pin_goal, DEV)
+    problems, cap = suite["problems"], suite["cuboid_capacity"]
+    wt0 = ikk.pack_world_arrays(motion_world(problems[0]["world"], cap))
+    inputs = traj_inputs(BSplineTransition(tcfg.bspline), problems, N_TRAJ, gen, tcfg.pin_goal)
+    tg = compare_traj_cost_grad(tt, wt0, inputs, "payload/suite trajectories")
+    reset_counts()
+    rows = []
+    for i, p in enumerate(problems[:ATTACH_PROBLEMS]):
+        world, goal, start = problem_inputs(kin, p, cap)
+        t0 = time.perf_counter()
+        res = planner.plan_pose(world, goal, start, seed=i)
+        res.trajectory.position.cpu()
+        if not torch.isfinite(res.trajectory.position).all():
+            fail(f"payload problem {i}: non-finite trajectory")
+        rows.append(dict(success=bool(res.success[0]), ms=(time.perf_counter() - t0) * 1e3,
+                         attempts=planner.last_attempts))
+    launches, pair = counts(), sc_counts()
+    n_att = sum(r["attempts"] for r in rows)
+    if launches["ik_solve"] != n_att or launches["traj_solve"] < 2 * n_att:
+        fail(f"the payload plans left the kernel route: {launches}, {n_att} attempts")
+    return dict(problems=len(rows), success_rate=float(np.mean([r["success"] for r in rows])),
+                plan_ms_median=float(np.median([r["ms"] for r in rows])), attempts=n_att,
+                live_pairs=tab.P, ik_cost_grad=cg, traj_cost_grad=tg, launches=launches,
+                pair_kernel_launches=pair)
+
+
+def multi_env(kin, data0, data1, goals):
+    """(d) `evaluate_config_env` over 2 stacked voxel worlds x
+    VOXEL_ENV_CONFIGS configurations, interleaved, against the single-world
+    calls on each world's configurations: bit for bit."""
+    w0, w1 = voxel_world(data0), voxel_world(data1)
+    stack = ct.stack_worlds([w0, w1])
+    n = 2 * VOXEL_ENV_CONFIGS
+    gen = torch.Generator().manual_seed(23)
+    env = torch.randperm(n, generator=gen) % 2
+    q = (kin.params.retract_config.cpu() + 0.8 * torch.randn((n, kin.n_dof), generator=gen)).to(DEV)
+    g = ct.Goal.from_pose(ct.Pose(goals.position[torch.arange(n) % N_GOALS],
+                                  goals.quaternion[torch.arange(n) % N_GOALS]))
+    rollout = ct.RobotRollout(kin.params, ct.IKConfig().rollout)
+    reset_counts()
+    with torch.no_grad():
+        res = rollout.evaluate_config_env(stack, env.to(DEV), g, q)
+        torch.cuda.synchronize()
+        fields = ("cost", "pos_err", "rot_err", "feasible", "in_collision", "self_colliding")
+        equal = {}
+        for e, w in enumerate((w0, w1)):
+            rows = torch.nonzero(env == e)[:, 0].to(DEV)
+            gi = dataclasses.replace(g, goal_pos=g.goal_pos[rows], goal_quat=g.goal_quat[rows])
+            one = rollout.evaluate_config(w, gi, q[rows])
+            for f in fields:
+                equal[f"{f}/world{e}"] = bool(torch.equal(getattr(res, f)[rows], getattr(one, f)))
+    coll = [float(res.in_collision[env.to(DEV) == e].float().mean()) for e in (0, 1)]
+    out = dict(worlds=2, configurations=n, equal=equal, in_collision_share=coll,
+               pair_kernel_launches=sc_counts())
+    if not all(equal.values()):
+        fail(f"evaluate_config_env differs from the single-world calls: {out}")
+    if not torch.isfinite(res.cost).all():
+        fail("evaluate_config_env: non-finite cost")
+    return out
+
+
+def voxel_phase(kin, suite):
+    """Phase `voxel`: (a) IK, (b) MPC, (c) an attached payload, (d)
+    multi-environment rollouts; each part fails the run at its gate."""
+    t_phase = time.perf_counter()
+    x_vox = voxel_centres()
+    table_d = box_sdf(x_vox, (TABLE_BOX,))
+    data = np.minimum(table_d, box_sdf(x_vox, (PERCEPTION_BOX,)))
+    world_v, world_c = voxel_world(data), cuboid_twin()
+    goals = make_goals(kin, world_c)
+    out = dict(phase="voxel", gpu=gpu_line(), grid=list(VOXEL_SHAPE), cell_m=VOXEL_CELL,
+               grid_mb=float(data.nbytes / 1e6))
+    out["ik"] = voxel_ik(kin, world_v, world_c, goals)
+    out["mpc"] = voxel_mpc(kin, data, table_d, x_vox)
+    out["attached"] = attached_payload(kin, suite, goals)
+    moved = np.minimum(table_d, box_sdf(x_vox, (shifted(PERCEPTION_BOX, 0.2),)))
+    out["multi_env"] = multi_env(kin, data, moved, goals)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main():
     quick = "--quick" in sys.argv[1:]
     t_start = time.perf_counter()
@@ -2119,13 +2584,18 @@ def main():
     out_dir = OUT_DIR
     os.makedirs(out_dir, exist_ok=True)
     try:
-        alone = [a for a in sys.argv[1:] if a in ("--g1", "--retarget")]
+        alone = [a for a in sys.argv[1:] if a in ("--g1", "--retarget", "--torque", "--voxel")]
         if alone:
             emit(dict(phase="env", gpu=gpu_line(), torch=torch.__version__, cuda=torch.version.cuda))
+            kin = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"))
             if "--g1" in alone:
                 emit(g1_phase(out_dir)[0])
             if "--retarget" in alone:
                 emit(retarget_phase())
+            if "--torque" in alone:
+                emit(torque_phase(kin, motion_suite(), out_dir, t_start))
+            if "--voxel" in alone:
+                emit(voxel_phase(kin, motion_suite()))
             return
         run(quick, t_start, out_dir)
     finally:
@@ -2174,7 +2644,16 @@ def sc_ptxas_entries(ptx, kernel):
     return out
 
 
-def sc_kernel_lines(sc, g1, generic, rt, ptx):
+def new_path_launches(name, torque, voxel):
+    """A kernel's launches on the paths of phases `torque` and `voxel`."""
+    def of(d):
+        return d.get("launches", {}).get(name, d.get("pair_kernel_launches", {}).get(name, 0))
+
+    return dict(launches_torque_phase=of(torque), launches_voxel_phase={
+        part: of(voxel[part]) for part in ("ik", "mpc", "attached", "multi_env")})
+
+
+def sc_kernel_lines(sc, g1, generic, rt, ptx, torque, voxel):
     """The `kernels` entries of the three pair kernels: times at the G1 line
     search (the main fields), the retarget robot's global and local frames
     and the Franka; launches in phase `retarget` (the slice's main path; per
@@ -2207,6 +2686,7 @@ def sc_kernel_lines(sc, g1, generic, rt, ptx):
             launches_retarget_per_part=per_part,
             launches_g1_phase=g1["pair_kernel_launches"][k],
             launches_generic_phase=generic["pair_kernel_launches"][k],
+            **new_path_launches(k, torque, voxel),
             device_ms=g["device_ms"][k], device_ms_retarget_global=rg["device_ms"][k],
             device_ms_retarget_local=rl["device_ms"][k], device_ms_franka=fr["device_ms"][k],
             shape_retarget_global=shape(rg), ms_retarget_global=rg["ms"][k],
@@ -2465,6 +2945,12 @@ def run(quick, t_start, out_dir):
     generic = generic_phase(kin, suite)
     emit(generic)
 
+    # ---- torque-limited motion generation, then voxel-grid worlds ---------------------
+    torque = torque_phase(kin, suite, out_dir, t_start)
+    emit(torque)
+    voxel = voxel_phase(kin, suite)
+    emit(voxel)
+
     # ---- the Unitree G1 on the generic route ----------------------------------------
     g1, g1_q = g1_phase(out_dir)
     emit(g1)
@@ -2593,7 +3079,9 @@ def run(quick, t_start, out_dir):
                  "cost_rel_median", "x_agree_frac", "feasible_agree_frac", "max_abs_err_x")},
              ptxas=ptxas_of(ptx["traj_kernels"], "traj_solve_kernel")),
     ]
-    kernels += sc_kernel_lines(sc, g1, generic, rt, ptx["self_collision"])
+    kernels += sc_kernel_lines(sc, g1, generic, rt, ptx["self_collision"], torque, voxel)
+    for line in kernels[:4]:
+        line.update(new_path_launches(line["name"], torque, voxel))
     emit(dict(phase="compare_summary", env={k: env[k] for k in ("torch", "cuda", "python")},
               build_seconds=secs, cases=brief_cases(
                   [cmp, tcmp, mpc_cmp, full_bench, full_inj, full_traj, dual_cmp, sc], []),

@@ -8,10 +8,12 @@ trajectory optimization -> interpolation; `MPCSolver.step` / `run_ticks`),
 with the fused IK and trajectory kernels written by hand in CUDA C++
 (`ops/ik_kernels.py`, `ops/traj_kernels.py`, `ops/csrc/`) and a generic
 objective in plain PyTorch for what the kernels do not take (goal sets,
-c-space goals, per-tool criteria). IK serves robots with several tool frames
-(the dual-arm UR10e) on the kernel route, with an optional Levenberg-Marquardt
-seed stage (`SeedIK`). Entry points run on the CUDA device unless the caller
-passes ``device="cpu"``.
+c-space goals, per-tool criteria, torque limits, voxel-grid worlds). IK
+serves robots with several tool frames (the dual-arm UR10e) on the kernel
+route, with an optional Levenberg-Marquardt seed stage (`SeedIK`). Inverse
+dynamics (`Dynamics`, RNEA), grasped objects (`AttachmentManager`) and
+per-problem worlds (`RobotRollout.evaluate_config_env`) are there too. Entry
+points run on the CUDA device unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -27,12 +29,13 @@ _torch.backends.cudnn.allow_tf32 = False
 
 # Types
 from curobo_tpu_torch.types.pose import Pose
-from curobo_tpu_torch.types.state import JointState
+from curobo_tpu_torch.types.state import JointState, RobotState
 
 # Robot model
 from curobo_tpu_torch.robot.kinematics import Kinematics, KinematicsState, compute_kinematics
 from curobo_tpu_torch.robot.model import RobotModelConfig, build_kinematics_params
 from curobo_tpu_torch.robot.params import KinematicsParams, JointLimits
+from curobo_tpu_torch.robot.dynamics import Dynamics, compute_inverse_dynamics
 
 # Geometry / world
 from curobo_tpu_torch.geom.types import (
@@ -44,7 +47,13 @@ from curobo_tpu_torch.geom.types import (
     MeshObstacle,
     VoxelGridObstacle,
 )
-from curobo_tpu_torch.geom.world import WorldData, compile_scene, empty_world, stack_worlds
+from curobo_tpu_torch.geom.world import (
+    VoxelGridData,
+    WorldData,
+    compile_scene,
+    empty_world,
+    stack_worlds,
+)
 
 # Solvers
 from curobo_tpu_torch.solver.ik import IKConfig, IKResult, IKSolver
@@ -56,7 +65,7 @@ from curobo_tpu_torch.graph.prm import PRMConfig, PRMGraphPlanner
 from curobo_tpu_torch.opt.lm import LMConfig, SeedIK
 
 # Collision convenience
-from curobo_tpu_torch.collision.robot_scene import RobotSceneCollision
+from curobo_tpu_torch.collision.robot_scene import AttachmentManager, RobotSceneCollision
 
 # Rollout / goal
 from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRollout, RobotRolloutConfig

@@ -1,8 +1,10 @@
 """Robot-vs-scene collision convenience API.
 
 Counterpart of `curobo_tpu/collision/robot_scene.py`: joint-space distance
-queries and batched sample/validate/validate_trajectory. `AttachmentManager`
-waits.
+queries and batched sample/validate/validate_trajectory, and
+`AttachmentManager`, which fills the robot's reserved sphere slots with a
+grasped object (new params: a solver built from them builds its kernels'
+tables from the new spheres and margins).
 """
 
 from __future__ import annotations
@@ -101,3 +103,63 @@ class RobotSceneCollision:
             if got >= n:
                 break
         return torch.as_tensor(out, device=dev), torch.as_tensor(ok, device=dev)
+
+
+class AttachmentManager:
+    """Attach and detach grasped objects as extra collision spheres.
+
+    The robot model reserves disabled placeholder spheres on a link
+    (``extra_collision_spheres`` in the robot YAML); attaching fills them and
+    recomputes the self-collision margins. Every call returns new params and
+    leaves the given ones untouched; the tensors stay on their device.
+    """
+
+    def __init__(self, params: KinematicsParams, link_name: str = "attached_object"):
+        self.base_params = params
+        self.link_name = link_name
+        li = params.link_names.index(link_name)
+        self._slots = [i for i, l in enumerate(params.sphere_link_idx) if l == li]
+        if not self._slots:
+            raise ValueError(f"link {link_name!r} has no reserved collision sphere slots")
+
+    @property
+    def n_slots(self) -> int:
+        return len(self._slots)
+
+    @staticmethod
+    def _set(params: KinematicsParams, idx, centers, radii) -> KinematicsParams:
+        dev = params.device
+        c = params.sphere_centers.clone()
+        r = params.sphere_radii.clone()
+        idx = torch.as_tensor(idx, dtype=torch.long, device=dev)
+        c[idx] = torch.as_tensor(centers, dtype=c.dtype, device=dev)
+        r[idx] = torch.as_tensor(radii, dtype=r.dtype, device=dev)
+        params = params.update_spheres(c, r)
+        return dataclasses.replace(
+            params, self_collision=params.self_collision.recompute_margins(r)
+        )
+
+    def attach_spheres(self, params: KinematicsParams, centers, radii) -> KinematicsParams:
+        """centers (K, 3) in the attach-link frame, radii (K,), K <= n_slots."""
+        K = centers.shape[0]
+        if K > len(self._slots):
+            raise ValueError(f"{K} spheres > {len(self._slots)} reserved slots")
+        return self._set(params, self._slots[:K], centers, radii)
+
+    def attach_box(self, params: KinematicsParams, half_dims, offset=(0.0, 0.0, 0.0)) -> KinematicsParams:
+        """Approximate a box payload with the reserved spheres along its
+        longest axis (cheap sphere fit)."""
+        h = np.asarray(half_dims, dtype=np.float32)
+        n = len(self._slots)
+        axis = int(np.argmax(h))
+        r = float(np.sqrt(sum(h[i] ** 2 for i in range(3) if i != axis) + 1e-12))
+        span = max(h[axis] - r, 0.0)
+        ts = np.linspace(-span, span, n) if n > 1 else np.zeros(1)
+        centers = np.tile(np.asarray(offset, dtype=np.float32), (n, 1))
+        centers[:, axis] += ts
+        return self.attach_spheres(params, centers, np.full((n,), r, dtype=np.float32))
+
+    def detach(self, params: KinematicsParams) -> KinematicsParams:
+        n = len(self._slots)
+        return self._set(params, self._slots, np.zeros((n, 3), np.float32),
+                         np.full((n,), -10.0, np.float32))

@@ -61,11 +61,9 @@ def kinematics_params_from_numpy(d: dict, device=None) -> KinematicsParams:
 
 def world_from_numpy(d: dict, device=None) -> world_mod.WorldData:
     """d: 'cuboids' / 'spheres' / 'capsules' / 'cylinders' -> dictionaries of
-    the JAX package's per-type stores (arrays + names). Voxel grids are not
-    carried across."""
+    the JAX package's per-type stores (arrays + names); 'voxel_grids' -> a
+    list of dictionaries, one per grid (arrays + name)."""
     device = resolve_device(device)
-    if d.get("voxel_grids"):
-        raise NotImplementedError("world_from_numpy: voxel grids are not ported yet")
 
     def store(cls, src, fields):
         return cls(
@@ -84,5 +82,12 @@ def world_from_numpy(d: dict, device=None) -> world_mod.WorldData:
             world_mod.CylinderData, d["cylinders"],
             ("rot", "pos", "radius", "half_height", "enabled"),
         ),
-        voxel_grids=(),
+        voxel_grids=tuple(
+            world_mod.VoxelGridData(
+                **{k: _tensor(g[k], device)
+                   for k in ("rot", "pos", "origin", "cell_size", "data", "enabled")},
+                name=str(g.get("name", "")),
+            )
+            for g in d.get("voxel_grids", ())
+        ),
     )

@@ -1,11 +1,13 @@
-"""Analytic signed-distance primitives (PyTorch).
+"""Analytic signed-distance primitives and voxel-grid sampling (PyTorch).
 
 Counterpart of `curobo_tpu/geom/sdf.py`. Convention: sdf(x) > 0 outside the
 obstacle, < 0 inside. Batched over arbitrary leading dims; differentiable by
-autograd. Voxel-grid sampling waits for the perception slice.
+autograd.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -45,3 +47,45 @@ def sdf_cylinder(x_local, radius, half_height):
     )
     inside = torch.maximum(d_r, d_z).clamp_max(0.0)
     return outside + inside
+
+
+# the eight corners of a voxel cell, x fastest: the order of the JAX
+# package's gathers, so the trilinear blend adds in the same order
+_CORNERS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0), (0, 0, 1), (1, 0, 1), (0, 1, 1), (1, 1, 1))
+
+
+@functools.lru_cache(maxsize=16)
+def _grid_tables(shape: tuple, device: torch.device):
+    """(corner offsets (8, 3), grid shape (3,)) on `device`, copied there once
+    per grid shape: a host-to-device copy waits for the device's queue."""
+    return (torch.tensor(_CORNERS, device=device), torch.tensor(shape, device=device))
+
+
+def sample_voxel_grid(
+    grid: torch.Tensor,
+    x_local: torch.Tensor,
+    origin: torch.Tensor,
+    cell_size,
+    outside_value: float = 1.0,
+) -> torch.Tensor:
+    """Trilinear sample of a dense SDF grid.
+
+    grid (X, Y, Z) values, x_local (..., 3) in the grid frame, origin (3,)
+    the grid-frame position of voxel (0, 0, 0)'s centre. A corner outside
+    the grid reads ``outside_value``, so points near the boundary blend into
+    it. Differentiable with respect to x_local (through the cell fraction;
+    the floor gives no gradient).
+    """
+    corners, dims = _grid_tables(tuple(grid.shape), grid.device)
+    u = (x_local - origin) / cell_size  # voxel coordinates
+    u0 = torch.floor(u)
+    frac = u - u0
+    idx = u0.long()[..., None, :] + corners  # (..., 8, 3)
+    valid = ((idx >= 0) & (idx < dims)).all(dim=-1)
+    ic = torch.minimum(idx.clamp_min(0), dims - 1)
+    flat = (ic[..., 0] * grid.shape[1] + ic[..., 1]) * grid.shape[2] + ic[..., 2]
+    v = torch.where(valid, grid.reshape(-1)[flat], outside_value)  # (..., 8)
+    fx, fy, fz = (frac[..., k, None] for k in range(3))
+    c = v[..., 0::2] * (1 - fx) + v[..., 1::2] * fx  # c00, c10, c01, c11
+    c = c[..., 0::2] * (1 - fy) + c[..., 1::2] * fy  # c0, c1
+    return c[..., 0] * (1 - fz[..., 0]) + c[..., 1] * fz[..., 0]

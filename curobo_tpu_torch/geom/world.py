@@ -1,9 +1,12 @@
 """Device-side collision world: fixed-shape obstacle tables + batched queries.
 
 Counterpart of `curobo_tpu/geom/world.py`: every obstacle type is a padded
-struct-of-arrays with an ``enabled`` mask. Mesh, point-cloud and voxel
-obstacles are not ported yet and make `compile_scene` raise. `stack_worlds`
-adds a leading axis (one world per MPC tick); `world_at` slices it.
+struct-of-arrays with an ``enabled`` mask, and each dense SDF grid (an ESDF
+from a depth camera: `VoxelGridObstacle`) is one `VoxelGridData`, sampled
+trilinearly. Mesh and point-cloud obstacles, which the JAX package bakes into
+such grids, are not ported yet and make `compile_scene` raise. `stack_worlds`
+adds a leading axis (one world per MPC tick or environment); `world_at`
+slices it.
 """
 
 from __future__ import annotations
@@ -60,13 +63,27 @@ class CylinderData:
 
 
 @dataclasses.dataclass(frozen=True)
+class VoxelGridData:
+    """Dense SDF grid: ``data[x, y, z]`` is the signed distance at the voxel's
+    centre; ``origin`` is the grid-frame position of voxel (0, 0, 0)'s centre;
+    the pose maps grid -> world."""
+
+    rot: torch.Tensor  # (3, 3)
+    pos: torch.Tensor  # (3,)
+    origin: torch.Tensor  # (3,)
+    cell_size: torch.Tensor  # () scalar
+    data: torch.Tensor  # (X, Y, Z)
+    enabled: torch.Tensor  # () scalar 0/1
+    name: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
 class WorldData:
     cuboids: CuboidData
     spheres: SphereData
     capsules: CapsuleData
     cylinders: CylinderData
-    # dense SDF grids (not ported yet; always empty from `compile_scene`)
-    voxel_grids: Tuple = ()
+    voxel_grids: Tuple[VoxelGridData, ...] = ()
 
     @property
     def device(self) -> torch.device:
@@ -78,13 +95,23 @@ class WorldData:
             store = getattr(self, field)
             if name in store.names:
                 return field, store.names.index(name)
+        for i, vg in enumerate(self.voxel_grids):
+            if vg.name == name:
+                return "voxel_grids", i
         raise ValueError(f"obstacle {name!r} not in world")
+
+    def _with_grid(self, idx: int, **fields) -> "WorldData":
+        grids = list(self.voxel_grids)
+        grids[idx] = dataclasses.replace(grids[idx], **fields)
+        return dataclasses.replace(self, voxel_grids=tuple(grids))
 
     def update_obstacle_pose(self, name: str, position, quaternion) -> "WorldData":
         field, idx = self._type_of(name)
         dev = self.device
         R = qm.quat_to_matrix(torch.as_tensor(quaternion, dtype=torch.float32, device=dev))
         p = torch.as_tensor(position, dtype=torch.float32, device=dev)
+        if field == "voxel_grids":
+            return self._with_grid(idx, rot=R, pos=p)
         store = getattr(self, field)
         if field == "spheres":
             center = store.center.clone()
@@ -98,10 +125,26 @@ class WorldData:
 
     def enable_obstacle(self, name: str, enabled: bool) -> "WorldData":
         field, idx = self._type_of(name)
+        if field == "voxel_grids":
+            return self._with_grid(idx, enabled=torch.tensor(
+                1.0 if enabled else 0.0, device=self.device))
         store = getattr(self, field)
         en = store.enabled.clone()
         en[idx] = 1.0 if enabled else 0.0
         return dataclasses.replace(self, **{field: dataclasses.replace(store, enabled=en)})
+
+    def update_voxel_data(self, name: str, data: torch.Tensor) -> "WorldData":
+        """Swap the SDF contents of a voxel grid (the perception feed path)."""
+        field, idx = self._type_of(name)
+        if field != "voxel_grids":
+            raise ValueError(f"{name!r} is not a voxel grid")
+        vg = self.voxel_grids[idx]
+        if tuple(data.shape) != tuple(vg.data.shape):
+            raise ValueError(
+                f"voxel data shape {tuple(data.shape)} != grid shape {tuple(vg.data.shape)}"
+            )
+        return self._with_grid(idx, data=torch.as_tensor(data, dtype=vg.data.dtype,
+                                                         device=vg.data.device))
 
 
 # ---------------------------------------------------------------------------
@@ -144,12 +187,11 @@ def compile_scene(
     from curobo_tpu_torch.runtime import resolve_device
 
     device = resolve_device(device)
-    for cls in (gt.VoxelGridObstacle, gt.MeshObstacle, gt.PointCloudObstacle):
+    for cls in (gt.MeshObstacle, gt.PointCloudObstacle):
         if scene.by_type(cls):
             raise NotImplementedError(
-                f"compile_scene: {cls.__name__} obstacles (dense SDF grids) are "
-                "not ported yet; the IK kernels take cuboid, sphere, capsule "
-                "and cylinder obstacles"
+                f"compile_scene: {cls.__name__} obstacles (baked into SDF grids) "
+                "are not ported yet"
             )
     caps = capacities or {}
 
@@ -230,27 +272,43 @@ def compile_scene(
         tensor(rot), tensor(pos), tensor(r), tensor(hh), tensor(en), tuple(names)
     )
 
-    return WorldData(cuboids, spheres, capsules, cylinders, ())
+    # Voxel grids, centred on the obstacle pose
+    grids = []
+    for o in scene.by_type(gt.VoxelGridObstacle):
+        R, p = _pose_Rp(o.pose)
+        shape = tuple(int(round(d / o.voxel_size)) for d in o.dims)
+        data = (np.asarray(o.data, dtype=np.float32) if o.data is not None
+                else np.full(shape, 10.0, dtype=np.float32))
+        origin = -(np.asarray(o.dims, dtype=np.float32) / 2.0) + o.voxel_size / 2.0
+        grids.append(VoxelGridData(
+            tensor(R), tensor(p), tensor(origin), tensor(o.voxel_size), tensor(data),
+            tensor(float(o.enabled)), o.name,
+        ))
+
+    return WorldData(cuboids, spheres, capsules, cylinders, tuple(grids))
 
 
 def empty_world(device=None) -> WorldData:
     return compile_scene(gt.Scene(), device=device)
 
 
+def _map_store(fn, stores):
+    """fn over each tensor field of one store (one per world); the names
+    come from the first."""
+    return dataclasses.replace(stores[0], **{
+        f.name: fn(*(getattr(s, f.name) for s in stores))
+        for f in dataclasses.fields(stores[0]) if f.name not in ("names", "name")
+    })
+
+
 def _map_tables(fn, *worlds: WorldData) -> WorldData:
     """Apply fn to each obstacle table's tensors (one per world); names come
     from the first world."""
     w0 = worlds[0]
-    stores = {}
-    for field in ("cuboids", "spheres", "capsules", "cylinders"):
-        store = getattr(w0, field)
-        vals = {
-            f.name: fn(*(getattr(getattr(w, field), f.name) for w in worlds))
-            for f in dataclasses.fields(store)
-            if f.name != "names"
-        }
-        stores[field] = dataclasses.replace(store, **vals)
-    return dataclasses.replace(w0, **stores)
+    stores = {field: _map_store(fn, [getattr(w, field) for w in worlds])
+              for field in ("cuboids", "spheres", "capsules", "cylinders")}
+    grids = tuple(_map_store(fn, list(gs)) for gs in zip(*(w.voxel_grids for w in worlds)))
+    return dataclasses.replace(w0, voxel_grids=grids, **stores)
 
 
 def stack_worlds(worlds) -> WorldData:
@@ -263,9 +321,8 @@ def stack_worlds(worlds) -> WorldData:
     worlds = list(worlds)
     if not worlds:
         raise ValueError("stack_worlds: no worlds given")
-    for w in worlds:
-        if w.voxel_grids:
-            raise NotImplementedError("stack_worlds: voxel-grid worlds are not ported yet")
+    if any(len(w.voxel_grids) != len(worlds[0].voxel_grids) for w in worlds):
+        raise ValueError("worlds must hold the same number of voxel grids to stack")
 
     def stack(*ts):
         if any(t.shape != ts[0].shape for t in ts):
@@ -292,8 +349,6 @@ def sphere_sdf(world: WorldData, x: torch.Tensor) -> torch.Tensor:
     x: (..., S, 3) -> (..., S). Differentiable; disabled/padded obstacles
     contribute +BIG.
     """
-    if len(world.voxel_grids) > 0:
-        raise NotImplementedError("sphere_sdf: voxel-grid worlds are not ported yet")
     parts = []
 
     if world.cuboids.pos.shape[0] > 0:
@@ -320,6 +375,11 @@ def sphere_sdf(world: WorldData, x: torch.Tensor) -> torch.Tensor:
         xl = torch.einsum("nji,...snj->...sni", cy.rot, x[..., None, :] - cy.pos)
         d = sdf_mod.sdf_cylinder(xl, cy.radius, cy.half_height)
         parts.append(torch.where(cy.enabled > 0, d, BIG))
+
+    for vg in world.voxel_grids:
+        xl = torch.einsum("ji,...sj->...si", vg.rot, x - vg.pos)
+        d = sdf_mod.sample_voxel_grid(vg.data, xl, vg.origin, vg.cell_size, outside_value=10.0)
+        parts.append(torch.where(vg.enabled > 0, d, BIG)[..., None])
 
     if not parts:
         return torch.full(x.shape[:-1], BIG, dtype=x.dtype, device=x.device)

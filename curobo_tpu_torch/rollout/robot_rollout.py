@@ -13,9 +13,13 @@ The JAX package also has a B-last form of this objective (`ops/blast.py`); the
 port has this one, which the tests hold against both. `cost_config` is the
 cost of `evaluate_config` without its metrics, for the optimizers, which read
 only the cost. The support-polygon term needs the hull baked into the config
-(`cost/support_polygon.py:configure_rollout`). The `_env` variants wait with
-multi-environment worlds; a torque limit (inverse dynamics) raises
-`NotImplementedError`.
+(`cost/support_polygon.py:configure_rollout`). The torque-limit term runs the
+RNEA of `robot/dynamics.py` over the trajectory, with the payload added to the
+last link's mass. The `_env` variants route each problem to its own world of a
+`stack_worlds` stack: the problems are grouped by world, each group is one
+single-world call, and the results are put back in the problems' order (the
+JAX package gathers and `vmap`s; the pair kernels of the self-collision sum
+are launches inside an `autograd.Function`, which `vmap` cannot enter).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from curobo_tpu_torch.cost import terms
 from curobo_tpu_torch.geom import world as world_mod
 from curobo_tpu_torch.geom.self_collision import self_collision_distance
 from curobo_tpu_torch.robot import kinematics as kin_mod
+from curobo_tpu_torch.robot.dynamics import compute_inverse_dynamics
 from curobo_tpu_torch.robot.params import KinematicsParams
 from curobo_tpu_torch.types.pose import Pose
 from curobo_tpu_torch.types.state import JointState
@@ -149,6 +154,18 @@ class RolloutResult:
         )
 
 
+def _goal_rows(goal: Goal, rows: torch.Tensor) -> Goal:
+    """The goals of problems `rows`; per-tool criteria are batch-free and pass
+    through."""
+    def take(a):
+        return None if a is None else a[rows]
+
+    return dataclasses.replace(
+        goal, goal_pos=take(goal.goal_pos), goal_quat=take(goal.goal_quat),
+        goal_cspace=take(goal.goal_cspace), current_position=take(goal.current_position),
+    )
+
+
 @functools.lru_cache(maxsize=8)
 def _hull_tensor(hull: tuple, device: torch.device) -> torch.Tensor:
     """The baked hull as a (V, 2) tensor on `device`, copied there once."""
@@ -177,6 +194,12 @@ class RobotRollout:
     def __init__(self, params: KinematicsParams, cfg: RobotRolloutConfig):
         self.params = params
         self.cfg = cfg
+        # the torque term's model: the payload sits at the last link's CoM
+        self._dyn_params = params
+        if cfg.payload_mass > 0.0:
+            mass = params.link_mass.clone()
+            mass[params.n_links - 1] += cfg.payload_mass
+            self._dyn_params = dataclasses.replace(params, link_mass=mass)
 
     # -- single-state objective (IK) ------------------------------------
     def _config_cost(self, world, goal: Goal, q: torch.Tensor):
@@ -236,6 +259,64 @@ class RobotRollout:
             self_colliding=self_colliding, out_of_bounds=oob,
         )
 
+    # -- multi-environment variants (reference SolveMode.MULTI_ENV) -------
+    def _per_env(self, worlds: world_mod.WorldData, env_idx, batch: int, fn) -> RolloutResult:
+        """fn(world, rows) over each world's problems of a `stack_worlds`
+        stack, the results put back in the problems' order. The routing is
+        read to the host once."""
+        env = torch.as_tensor(env_idx).detach().cpu().long().reshape(-1)
+        n_env = worlds.cuboids.pos.shape[0]
+        if env.shape[0] != batch:
+            raise ValueError(f"env_idx has {env.shape[0]} entries for {batch} problems")
+        if bool(((env < 0) | (env >= n_env)).any()):
+            raise IndexError(f"env_idx outside the {n_env} stacked worlds")
+        dev = self.params.device
+        rows_of, parts = [], []
+        for e in torch.unique(env).tolist():
+            rows = torch.nonzero(env == e)[:, 0]
+            rows_of.append(rows)
+            parts.append(fn(world_mod.world_at(worlds, e), rows.to(dev)))
+        inv = torch.argsort(torch.cat(rows_of)).to(dev)
+
+        def merge(name):
+            vals = [getattr(r, name) for r in parts]
+            return None if vals[0] is None else torch.cat(vals, dim=0)[inv]
+
+        return RolloutResult(**{f.name: merge(f.name) for f in dataclasses.fields(RolloutResult)})
+
+    def evaluate_config_env(
+        self,
+        worlds: world_mod.WorldData,  # tables stacked (E, ...) by `stack_worlds`
+        env_idx,  # (B,) int: the world of each problem
+        goal: Goal,  # (B, ...)
+        q: torch.Tensor,  # (B, ..., D)
+        collision_eps: float = 0.0,
+    ) -> RolloutResult:
+        """`evaluate_config` with each problem in its own world; equal to the
+        single-world calls on each world's problems."""
+        return self._per_env(worlds, env_idx, q.shape[0], lambda w, rows: self.evaluate_config(
+            w, _goal_rows(goal, rows), q[rows], collision_eps))
+
+    def evaluate_trajectory_env(
+        self,
+        worlds: world_mod.WorldData,
+        env_idx,
+        goal: Goal,
+        traj: JointState,  # tensors (B, ..., H, D)
+        collision_eps: float = 0.0,
+    ) -> RolloutResult:
+        """`evaluate_trajectory` with each problem in its own world."""
+
+        def rows_of(rows):
+            t = traj[rows]
+            if traj.dt is not None and traj.dt.ndim > 0:
+                t = dataclasses.replace(t, dt=traj.dt[rows])
+            return t
+
+        return self._per_env(worlds, env_idx, traj.position.shape[0],
+                             lambda w, rows: self.evaluate_trajectory(
+                                 w, _goal_rows(goal, rows), rows_of(rows), collision_eps))
+
     # -- trajectory objective (trajopt / MPC) ---------------------------
     def evaluate_trajectory(
         self,
@@ -245,11 +326,6 @@ class RobotRollout:
         collision_eps: float = 0.0,
     ) -> RolloutResult:
         p, cfg = self.params, self.cfg
-        if cfg.torque_limit_weight > 0.0 and traj.velocity is not None:
-            raise NotImplementedError(
-                "RobotRollout: the torque-limit term needs inverse dynamics "
-                "(robot/dynamics.py, RNEA), which is not ported yet"
-            )
         q = traj.position
         state = kin_mod.compute_kinematics(p, q)  # (..., H, ...)
 
@@ -287,6 +363,13 @@ class RobotRollout:
                      (cfg.jerk_weight, traj.jerk)):
             if w > 0.0 and x is not None:
                 cost = cost + w * (x * x).sum(dim=-1).mean(dim=-1)
+
+        # inverse-dynamics torque limits (RNEA over the trajectory); the
+        # effort is inf where the robot's YAML gives none, and adds 0 there
+        if cfg.torque_limit_weight > 0.0 and traj.velocity is not None:
+            tau = compute_inverse_dynamics(self._dyn_params, q, traj.velocity, traj.acceleration)
+            over = (tau.abs() - p.joint_limits.effort).clamp_min(0.0)
+            cost = cost + cfg.torque_limit_weight * (over * over).sum(dim=-1).sum(dim=-1)
 
         # collisions
         if cfg.use_swept_collision:

@@ -6,14 +6,15 @@ buffer (7 words per tool frame) -> seeds -> optional LM seed refinement
 MPPI, L-BFGS, metrics, all inside the kernel) -> per-problem best-seed
 selection. The generic route (`_solve_impl`), taken exactly where the JAX
 `solve_pose` leaves its kernel (a goal set, per-tool criteria, a rollout
-config the kernel refuses, ``use_pallas=False``) and for a robot whose shapes
+config the kernel refuses, a world with a voxel grid, ``use_pallas=False``)
+and for a robot whose shapes
 the kernels do not take (`ik_kernels.robot_takes_kernel`: the G1's 49 dof and
 162k pairs), where the JAX package falls back after its kernel fails: the
 optional LM refinement
 of a larger seed pool cut to the best `n_seeds`, then `mppi_optimize` and
 `lbfgs_optimize` over `RobotRollout.evaluate_config`, plain PyTorch with
-autograd gradients. Seeds fold into the batch axis. Voxel worlds raise
-`NotImplementedError`; a failed kernel build or launch raises and never moves
+autograd gradients. Seeds fold into the batch axis. The route is decided
+before any launch; a failed kernel build or launch raises and never moves
 the solve to the generic route. There is no per-world kernel cache: obstacle
 capacities are launch arguments of the kernels.
 """
@@ -314,13 +315,9 @@ class IKSolver:
                 f"goal has {goal.goal_pos.shape[-2]} tool frames, robot has "
                 f"{self.params.n_tools}"
             )
-        if not ik_kernels.world_is_supported(world):
-            raise NotImplementedError(
-                "solve_pose: voxel-grid worlds (dense SDF grids) are not ported yet"
-            )
         if world.device != self.device:
             raise ValueError(f"world lies on {world.device}, solver on {self.device}")
-        if self._use_kernel(goal):
+        if self._use_kernel(goal) and ik_kernels.world_is_supported(world):
             seeds = self.generate_seeds(goal.batch, seed_state)
             return self._solve_impl_kernel(world, goal, seeds, seed, noise)
         n_gen = self.cfg.n_seeds

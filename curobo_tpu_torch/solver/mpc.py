@@ -12,8 +12,9 @@ Two routes, chosen by the JAX package's conditions (`_use_kernel`):
   with the STOMP-smoothed noise, L-BFGS, metrics) is one `traj_solve` launch,
   then the B-spline rollout of the plan;
 - the generic route (`_step_impl`), for c-space goals, goal sets, per-tool
-  criteria and configurations the kernel refuses: `mppi_optimize` and
-  `lbfgs_optimize` over `RobotRollout.evaluate_trajectory`.
+  criteria, configurations the kernel refuses (a torque limit among them)
+  and worlds with a voxel grid: `mppi_optimize` and `lbfgs_optimize` over
+  `RobotRollout.evaluate_trajectory`.
 
 Both end in `_finish_step`, which stays on the device: the feasibility test,
 the brake fallback (`torch.where`), the command and the warm start read no
@@ -143,11 +144,6 @@ class MPCSolver:
 
     def __init__(self, params: KinematicsParams, cfg: MPCConfig = MPCConfig(), device=None):
         self.device = runtime.resolve_device(device)
-        if cfg.rollout.torque_limit_weight > 0.0:
-            raise NotImplementedError(
-                "MPCSolver: a torque limit needs inverse dynamics (robot/dynamics.py, "
-                "RNEA), which is not ported yet"
-            )
         self.params = params.to(self.device)
         self.cfg = cfg
         self.rollout = RobotRollout(self.params, cfg.rollout)
@@ -293,11 +289,10 @@ class MPCSolver:
 
     # ------------------------------------------------------------------
     def _impl(self, world: world_mod.WorldData, goal: Goal):
-        if not ik_kernels.world_is_supported(world):
-            raise NotImplementedError("MPCSolver: voxel-grid worlds are not ported yet")
         if world.device != self.device:
             raise ValueError(f"world lies on {world.device}, solver on {self.device}")
-        return self._step_impl_kernel if self._use_kernel(goal) else self._step_impl
+        use_kernel = self._use_kernel(goal) and ik_kernels.world_is_supported(world)
+        return self._step_impl_kernel if use_kernel else self._step_impl
 
     def _measured(self, joint_state: JointState):
         from curobo_tpu_torch.util.checks import check_joint_config

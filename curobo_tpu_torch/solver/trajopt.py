@@ -10,12 +10,13 @@ kernel route runs each round as one `traj_solve` launch (optional MPPI, L-BFGS
 over the free knots, metrics, retimed dt) and the final check as one
 `traj_cost_grad` launch in its metrics mode. The generic route (`_solve_seeds`)
 serves c-space goals (`solve_cspace`), goal sets, more than one tool, per-tool
-criteria, per-axis pose weights, a support polygon and ``use_pallas=False``:
-`mppi_optimize` and `lbfgs_optimize` over `RobotRollout.evaluate_trajectory`,
-plain PyTorch with autograd gradients. A torque limit and voxel worlds raise
-`NotImplementedError`; a failed kernel build or launch raises and never moves
-the solve to the generic route. There is no per-world kernel cache: obstacle
-capacities are launch arguments and nothing is built per world.
+criteria, per-axis pose weights, a support polygon, a torque limit, worlds
+with a voxel grid and ``use_pallas=False``: `mppi_optimize` and
+`lbfgs_optimize` over `RobotRollout.evaluate_trajectory`, plain PyTorch with
+autograd gradients. The route is decided before any launch; a failed kernel
+build or launch raises and never moves the solve to the generic route. There
+is no per-world kernel cache: obstacle capacities are launch arguments and
+nothing is built per world.
 """
 
 from __future__ import annotations
@@ -123,11 +124,6 @@ class TrajOptSolver:
 
     def __init__(self, params: KinematicsParams, cfg: TrajOptConfig = TrajOptConfig(), device=None):
         self.device = runtime.resolve_device(device)
-        if cfg.rollout.torque_limit_weight > 0.0:
-            raise NotImplementedError(
-                "TrajOptSolver: a torque limit needs inverse dynamics (robot/dynamics.py, "
-                "RNEA), which is not ported yet"
-            )
         self.params = params.to(self.device)
         self.cfg = cfg
         self.transition = BSplineTransition(cfg.bspline, device=self.device)
@@ -323,14 +319,10 @@ class TrajOptSolver:
         return self._solve(world, goal, q_start, goal_q[:, None], seed)
 
     def _solve(self, world, goal, q_start, seed_q, seed, seed_paths=None) -> TrajOptResult:
-        if not ik_kernels.world_is_supported(world):
-            raise NotImplementedError(
-                "TrajOptSolver: voxel-grid worlds (dense SDF grids) are not ported yet"
-            )
         if world.device != self.device:
             raise ValueError(f"world lies on {world.device}, solver on {self.device}")
         return self._finetune_impl(world, goal, q_start, seed_q, seed_paths, seed,
-                                   self._use_kernel(goal))
+                                   self._use_kernel(goal) and ik_kernels.world_is_supported(world))
 
     # ------------------------------------------------------------------
     def _finetune_impl(self, world, goal, q_start, seed_q, seed_paths, seed,

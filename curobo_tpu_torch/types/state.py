@@ -1,4 +1,5 @@
-"""JointState: batched joint-space state (plain dataclass of tensors).
+"""JointState: batched joint-space state (plain dataclass of tensors), and
+RobotState, the joint state with its task-space quantities.
 
 Counterpart of `curobo_tpu/types/state.py`.
 """
@@ -9,6 +10,8 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from curobo_tpu_torch.types.pose import Pose
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,3 +89,15 @@ class JointState:
 
     def select_joints(self, joint_names: Sequence[str]) -> "JointState":
         return self.reorder(joint_names)
+
+
+@dataclasses.dataclass(frozen=True)
+class RobotState:
+    """Full robot state: the joint state and what follows from it (tool and
+    link poses, collision spheres, joint torques)."""
+
+    joint_state: JointState
+    tool_poses: Optional[Pose] = None  # (..., n_tools) batched pose
+    robot_spheres: Optional[torch.Tensor] = None  # (..., n_spheres, 4) xyzr
+    link_poses: Optional[Pose] = None  # (..., n_links)
+    torque: Optional[torch.Tensor] = None  # (..., dof)

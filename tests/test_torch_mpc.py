@@ -291,9 +291,10 @@ def test_brake_fallback_and_commands_within_limits(ur10e):
 
 def test_refusals_and_device(ur10e):
     kt = ur10e["kt"]
-    with pytest.raises(NotImplementedError, match="inverse dynamics"):
-        MPCSolver(kt.params, MPCConfig(rollout=dataclasses.replace(
-            MPCConfig().rollout, torque_limit_weight=1.0)), device="cpu")
+    # a torque limit builds no kernel and takes the generic route
+    tq = MPCSolver(kt.params, MPCConfig(rollout=dataclasses.replace(
+        MPCConfig().rollout, torque_limit_weight=1.0)), device="cpu")
+    assert tq._solve_kernel is None
     # the support-polygon term takes the generic route
     from curobo_tpu_torch.cost.support_polygon import SupportPolygonConfig
 

@@ -219,16 +219,25 @@ def test_particle_stage_runs_through_the_solver(franka):
 
 @pytest.mark.parametrize("case", ["goal_set", "tool_weight", "goal_cspace", "voxel_world", "use_lm_seed"])
 def test_what_the_kernel_route_does_not_serve_raises(franka, case):
-    """Goal sets, per-tool weights and c-space goals leave the kernel route
-    for the generic one, as in the JAX package (and give finite results);
-    voxel worlds still raise. The LM seed stage is served: it refines the
+    """Goal sets, per-tool weights, c-space goals and worlds with a voxel
+    grid leave the kernel route for the generic one, as in the JAX package
+    (and give finite results). The LM seed stage is served: it refines the
     seeds and the kernel route runs after it."""
     kin, world, solver = franka
     pos, quat = torch.zeros(2, 3) + 0.3, torch.tensor([[0.0, 1.0, 0, 0]] * 2)
     goal = ct.Goal.from_pose(ct.Pose(pos, quat))
     if case == "voxel_world":
-        with pytest.raises(NotImplementedError, match="voxel"):
-            solver.solve_pose(dataclasses.replace(world, voxel_grids=(object(),)), ct.Pose(pos, quat))
+        voxel = ct.compile_scene(tgt.Scene().add(tgt.VoxelGridObstacle(
+            name="esdf", pose=[0.4, 0, 0.4, 1, 0, 0, 0], dims=[0.4, 0.4, 0.4], voxel_size=0.1)),
+            device="cpu")
+        solver._solve_impl_kernel = None  # the kernel route must not run
+        try:
+            res = solver.solve_pose(voxel, ct.Pose(pos, quat))
+        finally:
+            del solver._solve_impl_kernel
+        assert res.solution.shape == (2, 7)
+        for name in ("solution", "position_error", "rotation_error", "cost", "seed_solutions"):
+            assert torch.isfinite(getattr(res, name)).all(), name
         return
     if case == "use_lm_seed":
         lm = ct.IKSolver(kin.params, dataclasses.replace(solver.cfg, use_lm_seed=True, lm_seed_iters=3),

@@ -180,8 +180,8 @@ def test_particle_stage_runs_through_the_solver(ur10e):
 
 
 def test_what_the_kernel_route_does_not_serve_raises(ur10e):
-    """C-space goals, goal sets and per-axis pose weights take the generic
-    route, as in the JAX package; voxel worlds and a torque limit raise."""
+    """C-space goals, goal sets, per-axis pose weights, worlds with a voxel
+    grid and a torque limit take the generic route, as in the JAX package."""
     u = ur10e
     ts, wt = u["ts"], u["wt"]
     qs, sq = torch.as_tensor(u["q_start"][:2]), torch.as_tensor(u["seed_q"][:2])
@@ -192,12 +192,20 @@ def test_what_the_kernel_route_does_not_serve_raises(ur10e):
     assert not ts._use_kernel(ct.Goal.from_pose(gset))
     for res in (ts.solve_cspace(wt, sq[:, 0], qs), ts.solve_pose(wt, gset, qs, sq)):
         assert torch.isfinite(res.cost).all() and torch.isfinite(res.trajectory.position).all()
-    with pytest.raises(NotImplementedError, match="voxel"):
-        ts.solve_pose(dataclasses.replace(wt, voxel_grids=(object(),)), goal, qs, sq)
+    voxel = ct.compile_scene(tgt.Scene().add(tgt.VoxelGridObstacle(
+        name="esdf", pose=[0.4, 0, 0.4, 1, 0, 0, 0], dims=[0.4, 0.4, 0.4], voxel_size=0.1)),
+        device="cpu")
+    routes, run = [], ts._finetune_impl  # the last argument is use_kernel
+    ts._finetune_impl = lambda *a: routes.append(a[-1]) or run(*a)
+    try:
+        res = ts.solve_pose(voxel, goal, qs, sq)
+    finally:
+        del ts._finetune_impl
+    assert routes == [False] and torch.isfinite(res.trajectory.position).all()
     base = u["tcfg"]
-    with pytest.raises(NotImplementedError, match="inverse dynamics"):
-        ct.TrajOptSolver(u["kt"].params, dataclasses.replace(
-            base, rollout=dataclasses.replace(base.rollout, torque_limit_weight=1.0)), device="cpu")
+    tq = ct.TrajOptSolver(u["kt"].params, dataclasses.replace(
+        base, rollout=dataclasses.replace(base.rollout, torque_limit_weight=1.0)), device="cpu")
+    assert tq._solve_kernel is None
     axis = ct.TrajOptSolver(u["kt"].params, dataclasses.replace(base, rollout=dataclasses.replace(
         base.rollout, pose_cost=tterms.PoseCostConfig(position_axis_weight=(1.0, 1.0, 0.0)))),
         device="cpu")
