@@ -7,6 +7,7 @@
     python3 chip_smoke.py --retarget # phase `retarget` alone
     python3 chip_smoke.py --torque   # phase `torque` alone
     python3 chip_smoke.py --voxel    # phase `voxel` alone
+    python3 chip_smoke.py --perception  # phase `perception` alone
 
 Builds the CUDA kernels from the sources in this checkout and holds each
 kernel against its plain PyTorch version on the card at the shapes of its
@@ -63,6 +64,16 @@ twin's success less 0.05), runs 20 MPC ticks while the box moves through
 an attached payload's tables and plans 10 suite problems holding it, and
 checks `evaluate_config_env` over two stacked worlds against the
 single-world calls.
+Phase `perception` runs `examples/perception_to_planning.py`'s pipeline at
+full size (a 320 x 240 depth frame -> `FilterDepth` -> `Mapper.integrate`
+into 96 x 96 x 80 voxels -> `get_voxel_grid` -> `compile_scene` ->
+`IKSolver.solve_pose`, 100 goals x 32 seeds on the generic route, gated at
+the numpy-exact ESDF's success less 0.05, the map held against the CPU's),
+the reference bench's perception protocol (two 480 x 640 RGB-D cameras with
+8 feature channels into the block-sparse pool, ms a frame pair beside
+cuRobo's quoted 2 ms, no dropped block; the dense 128^3 grid and its ESDF),
+mesh and point-cloud obstacles (the native bake held against the numpy one,
+then IK around them), `SDFPoseDetector` and `RobotSegmenter`.
 The traces and the compiler's `-Xptxas -v` logs are written to
 `chiprun_out/`. Every line of output is one JSON object, except the line with
 the card's name and power limit. Exits non-zero on the first failed phase, and
@@ -99,6 +110,10 @@ from curobo_tpu_torch.ops import traj_kernels as tk
 from curobo_tpu_torch.opt.lbfgs import LBFGSConfig, LineSearchConfig
 from curobo_tpu_torch.opt.mppi import MPPIConfig, smooth_sample_transform
 from curobo_tpu_torch.transition.bspline import BSplineConfig, BSplineTransition
+from curobo_tpu_torch.geom import mesh as gmesh
+from curobo_tpu_torch.perception import block_sparse as bsp
+from curobo_tpu_torch.perception import mapper as mpr
+from curobo_tpu_torch.perception.pose_estimation import PoseEstimationConfig, SDFPoseDetector
 
 DEV = torch.device("cuda", 0)
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
@@ -2577,6 +2592,458 @@ def voxel_phase(kin, suite):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Perception: a depth frame -> TSDF -> ESDF -> world -> IK (the perception
+# example), the reference bench's perception throughput, mesh and point-cloud
+# obstacles, object pose estimation and robot segmentation
+# ---------------------------------------------------------------------------
+# the example's frame, camera and grid (`examples/perception_to_planning.py`)
+PERC_W, PERC_H = 320, 240
+PERC_DIMS, PERC_CELL, PERC_ORIGIN = (96, 96, 80), 0.025, (-0.6, -0.6, -0.1)
+PERC_CAM_R = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], dtype=np.float64)
+PERC_CAM_P = np.array([-1.0, 0.0, 0.5])
+PERC_IK_MARGIN = 0.05  # success at least the numpy-exact ESDF twin's less this
+PERC_REPS = 5
+# the reference bench's perception protocol (`bench.py:493-615`)
+BENCH_H, BENCH_W, BENCH_F = 480, 640, 8
+BENCH_GROUPS, BENCH_GROUP = 6, 8
+BENCH_SPARSE = dict(pool_blocks=4096, table_size=16384, rgb_channels=True, feature_channels=8,
+                    discovery_stride=8, max_active_blocks=256)
+BENCH_SPHERES = (([0.15, 0.1, 1.25], 0.12), ([-0.2, -0.05, 1.3], 0.09), ([0.0, 0.25, 1.2], 0.07))
+CUROBO_FRAME_MS = 2.0  # cuRobo's dual-RGBD feature-TSDF integration, quoted (BASELINE.md:48)
+# a card map against the CPU's on the same frame: this share of voxels within
+# MAP_ATOL (a voxel centre within an ulp of a pixel edge may read the neighbour)
+MAP_SHARE, MAP_ATOL = 0.999, 1e-5
+# the pose detector's small offset and limits (`tests/test_pose_estimation.py`)
+POSE_BOX_HALF = (0.06, 0.09, 0.12)
+POSE_TRUE_P, POSE_YAW = (0.4, 0.1, 0.3), 0.3
+
+
+def pinhole(W, H, fov_deg):
+    f = W / (2 * np.tan(np.radians(fov_deg) / 2))
+    return np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]], dtype=np.float32)
+
+
+def rot_quat(R):
+    """Rotation matrix -> wxyz quaternion (w >= 0)."""
+    w = np.sqrt(max(1.0 + np.trace(R), 1e-12)) / 2
+    q = np.array([w, (R[2, 1] - R[1, 2]) / (4 * w), (R[0, 2] - R[2, 0]) / (4 * w),
+                  (R[1, 0] - R[0, 1]) / (4 * w)])
+    return (q / np.linalg.norm(q)).astype(np.float32)
+
+
+def camera_dirs(W, H, K, R):
+    v, u = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    d = np.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1], np.ones_like(u, float)], -1)
+    return d @ R.T
+
+
+def slab_depth(W, H, K, R, o, box):
+    """Camera-z depth of an axis-aligned box (lo, hi) by the slab method."""
+    dirs = camera_dirs(W, H, K, R)
+    lo, hi = np.asarray(box[0]), np.asarray(box[1])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t0, t1 = (lo - o) / dirs, (hi - o) / dirs
+    tmin, tmax = np.minimum(t0, t1).max(-1), np.maximum(t0, t1).min(-1)
+    return np.where((tmax > tmin) & (tmin > 0), tmin, 0.0).astype(np.float32)
+
+
+def sphere_render(W, H, K, R, o, spheres, wall):
+    """Camera-z depth of spheres (S, 4) before a wall at camera z = `wall`."""
+    dirs = camera_dirs(W, H, K, R)
+    z = np.full((H, W), wall)
+    n2 = (dirs * dirs).sum(-1)
+    for c, r in zip(spheres[:, :3], spheres[:, 3]):
+        if r >= 0:
+            oc = o - c
+            b = (dirs * oc).sum(-1) / n2
+            disc = b * b - ((oc * oc).sum() - r * r) / n2
+            t = -b - np.sqrt(np.maximum(disc, 0))
+            z = np.minimum(z, np.where((disc > 0) & (t > 0), t, np.inf))
+    return z.astype(np.float32)
+
+
+def camera_obs(depth, K, quat, pos, dev, rgb=None, feat=None):
+    def t(a):
+        return None if a is None else torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    return ct.CameraObservation(t(depth), t(K), ct.Pose(t(pos), t(quat)), rgb=t(rgb), feature=t(feat))
+
+
+def grid_agreement(a, b):
+    """Share of voxels whose TSDF, weight and appearance agree within
+    MAP_ATOL between two maps, and the largest TSDF difference."""
+    bad = torch.zeros(tuple(a.tsdf.shape), dtype=torch.bool)
+    for k in ("tsdf", "weight", "rgb", "feature"):
+        x, y = getattr(a, k), getattr(b, k)
+        if x is not None:
+            d = (x.cpu() - y.cpu()).abs().reshape(bad.shape + (-1,))
+            bad |= (d > MAP_ATOL).any(-1)
+    return 1.0 - float(bad.float().mean()), float((a.tsdf.cpu() - b.tsdf.cpu()).abs().max())
+
+
+def mapper_centres(dims, cell, origin):
+    axes = [origin[k] + cell * np.arange(dims[k]) for k in range(3)]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).astype(np.float32)
+
+
+def ik_launch_check(label, launches, pair):
+    if any(launches.values()) or pair["sc_pair_cost"] < 1 or pair["sc_pair_grad"] < 1:
+        fail(f"{label}: IK or trajectory kernels {launches}, pair kernels {pair}")
+
+
+def timed_solves(solver, world, goals, reps):
+    """Warm-up, then `reps` solves timed by CUDA events; (result, ms list,
+    launches, pair launches) of the timed solves."""
+    solver.solve_pose(world, goals)
+    reset_counts()
+    ms = []
+    for i in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = solver.solve_pose(world, goals, seed=i)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    for name in ("solution", "position_error", "cost"):
+        if not torch.isfinite(getattr(res, name)).all():
+            fail(f"non-finite IKResult.{name}")
+    return res, ms, counts(), sc_counts()
+
+
+def perception_example(kin):
+    """(a) The example's protocol at full size: a 320 x 240 frame of the box
+    -> `FilterDepth` -> `Mapper.integrate` (96 x 96 x 80 at 2.5 cm) ->
+    `get_voxel_grid` -> `compile_scene` -> `IKSolver.solve_pose`: the example's
+    goal, then 100 goals x 32 seeds (FK of configurations clear of the box)
+    against the same solve in the numpy-exact box ESDF on the same grid."""
+    K = pinhole(PERC_W, PERC_H, 60.0)
+    depth = slab_depth(PERC_W, PERC_H, K, PERC_CAM_R, PERC_CAM_P, PERCEPTION_BOX)
+    quat = rot_quat(PERC_CAM_R)
+    cfg = ct.MapperConfig(dims=PERC_DIMS, voxel_size=PERC_CELL, origin=PERC_ORIGIN)
+
+    def pipeline(dev, sync):
+        t = [time.perf_counter()]
+        obs = ct.FilterDepth()(camera_obs(depth, K, quat, PERC_CAM_P, dev))
+        sync()
+        t.append(time.perf_counter())
+        mapper = ct.Mapper(cfg, device=dev)
+        mapper.integrate(obs)
+        sync()
+        t.append(time.perf_counter())
+        vg = mapper.get_voxel_grid("esdf_world")
+        t.append(time.perf_counter())
+        world = ct.compile_scene(gt.Scene().add(vg), device=dev)
+        sync()
+        t.append(time.perf_counter())
+        stages = dict(zip(("filter_ms", "integrate_ms", "esdf_to_host_ms", "compile_scene_ms"),
+                          np.diff(t) * 1e3))
+        return mapper, vg, world, stages
+
+    runs = [pipeline(DEV, torch.cuda.synchronize) for _ in range(PERC_REPS + 1)][1:]
+    mapper, vg, world, _ = runs[-1]
+    stage_ms = {k: statistics.median(r[3][k] for r in runs) for k in runs[0][3]}
+    cpu_mapper, cpu_vg, _, _ = pipeline(torch.device("cpu"), lambda: None)
+    share, tsdf_diff = grid_agreement(mapper.grid, cpu_mapper.grid)
+    occupied, occupied_cpu = int((vg.data < 0).sum()), int((cpu_vg.data < 0).sum())
+    if share < MAP_SHARE or occupied == 0:
+        fail(f"perception map: {share} of voxels agree with the CPU's, {occupied} occupied")
+    # the mapped ESDF against the analytic box SDF on the camera's side of the
+    # box, within 10 cm of its face
+    x = mapper_centres(PERC_DIMS, PERC_CELL, PERC_ORIGIN)
+    exact = box_sdf(x, (PERCEPTION_BOX,))
+    seen = (x[..., 0] < PERCEPTION_BOX[0][0]) & (exact > 0) & (exact <= 0.1)
+    gap = np.abs(vg.data - exact)[seen]
+
+    solver = ct.IKSolver(kin.params, ct.IKConfig(n_seeds=N_SEEDS))
+    one = solver.solve_pose(world, ct.Pose(torch.tensor([[0.45, 0.0, 0.75]], device=DEV),
+                                           torch.tensor([[0.0, 1.0, 0.0, 0.0]], device=DEV)))
+    (lo, hi) = PERCEPTION_BOX
+    box_world = ct.compile_scene(gt.Scene().add(gt.Cuboid(
+        name="box", pose=[(a + b) / 2 for a, b in zip(lo, hi)] + [1, 0, 0, 0],
+        dims=[b - a for a, b in zip(lo, hi)])))
+    goals = make_goals(kin, box_world)
+    res, ms, launches, pair = timed_solves(solver, world, goals, 3)
+    ik_launch_check("perception IK", launches, pair)
+    twin = ct.compile_scene(gt.Scene().add(gt.VoxelGridObstacle(
+        name="esdf_exact", pose=vg.pose, dims=vg.dims, voxel_size=PERC_CELL, data=exact)))
+    twin_res = solver.solve_pose(twin, goals)
+    valid = ct.RobotSceneCollision(kin.params).validate(box_world, res.solution)
+    out = dict(frame=[PERC_H, PERC_W], grid=list(PERC_DIMS), cell_m=PERC_CELL, **stage_ms,
+               map_voxels_agree_with_cpu=share, map_tsdf_max_diff_vs_cpu=tsdf_diff,
+               occupied_voxels=occupied, occupied_voxels_cpu=occupied_cpu,
+               esdf_max_diff_vs_cpu=float(np.abs(vg.data - cpu_vg.data).max()),
+               esdf_gap_to_box_sdf_m=dict(voxels=int(seen.sum()), median=float(np.median(gap)),
+                                          max=float(gap.max())),
+               example_goal=dict(success=bool(one.success[0]),
+                                 position_error_mm=float(one.position_error[0]) * 1e3),
+               goals=N_GOALS, seeds=N_SEEDS, success_rate=float(res.success.float().mean()),
+               success_exact_esdf_twin=float(twin_res.success.float().mean()),
+               solved_and_clear_of_the_box=float((res.success & valid).float().sum() /
+                                                 res.success.float().sum().clamp_min(1)),
+               ms_per_solve_median=statistics.median(ms), ms_per_solve_min=min(ms),
+               launches=launches, pair_kernel_launches=pair)
+    if out["success_rate"] < out["success_exact_esdf_twin"] - PERC_IK_MARGIN:
+        fail(f"perception IK success under the exact-ESDF twin's less {PERC_IK_MARGIN}: {out}")
+    return out
+
+
+def bench_frames(dev):
+    """The bench's two cameras, 4 frames each: the tabletop (a plane 1.45 m
+    from the camera and three spheres moving with the frame, raycast, 2 mm
+    noise), RGB and 8 feature channels, from numpy seeds."""
+    K = pinhole(BENCH_W, BENCH_H, 60.0)
+    uu, vv = np.meshgrid(np.arange(BENCH_W), np.arange(BENCH_H))
+    dirs = np.stack([(uu - BENCH_W / 2) / K[0, 0], (vv - BENCH_H / 2) / K[1, 1],
+                     np.ones_like(uu, np.float64)], -1)
+    nrm = np.linalg.norm(dirs, axis=-1)
+
+    def frame(i, pos):
+        rng = np.random.RandomState(100 + i)
+        z = np.full((BENCH_H, BENCH_W), 1.45)
+        for c, r in BENCH_SPHERES:
+            c = np.asarray(c) + np.asarray([0.02, 0.015, 0.0]) * (i % 4)
+            b = (dirs * c).sum(-1) / nrm ** 2
+            disc = b * b - ((c * c).sum() - r * r) / nrm ** 2
+            z = np.minimum(z, np.where(disc > 0, b - np.sqrt(np.maximum(disc, 0)), np.inf))
+        depth = (z + rng.normal(0, 0.002, z.shape)).astype(np.float32)
+        return camera_obs(depth, K, [1.0, 0, 0, 0], pos, dev,
+                          rgb=rng.uniform(size=(BENCH_H, BENCH_W, 3)),
+                          feat=rng.uniform(size=(BENCH_H, BENCH_W, BENCH_F)))
+
+    return ([frame(i, [0.0, 0.0, -1.2]) for i in range(4)],
+            [frame(i + 4, [0.3, 0.0, -1.2]) for i in range(4)])
+
+
+def group_ms(call):
+    """The bench's timing: one warm call, then BENCH_GROUPS groups of
+    BENCH_GROUP calls (`call(i)`), the device synchronised after each group;
+    ms per call of each group."""
+    call(0)
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(BENCH_GROUPS):
+        t0 = time.perf_counter()
+        for i in range(BENCH_GROUP):
+            call(i)
+        torch.cuda.synchronize()
+        per.append((time.perf_counter() - t0) * 1e3 / BENCH_GROUP)
+    return per
+
+
+def perception_bench():
+    """(b) The reference bench's perception protocol: two 480 x 640 RGB-D
+    cameras with 8 feature channels into the block-sparse pool
+    (`integrate_cameras_sparse`, the bench's `BlockSparseConfig`), the dense
+    128^3 grid from both cameras, and its ESDF; the card's pool against the
+    CPU's after the same 4 frame pairs."""
+    obs_a, obs_b = bench_frames(DEV)
+    scfg = ct.BlockSparseConfig(**BENCH_SPARSE)
+
+    def sparse_step(g, a, b):
+        return bsp.integrate_cameras_sparse(scfg, g, (a, b))
+
+    st = dict(sparse=bsp.make_sparse_grid(scfg, DEV))
+
+    def sparse_call(i):
+        st["sparse"] = sparse_step(st["sparse"], obs_a[i % 4], obs_b[i % 4])
+
+    sparse = group_ms(sparse_call)
+    sgrid = st["sparse"]
+    dropped, dropped_active = int(sgrid.dropped_blocks), int(sgrid.dropped_active)
+    if dropped or dropped_active:
+        fail(f"perception bench: dropped blocks {dropped}, dropped actives {dropped_active}")
+    # the card's pool against the CPU's after the same 4 frame pairs
+    cpu_a, cpu_b = bench_frames(torch.device("cpu"))
+    g_card, g_cpu = bsp.make_sparse_grid(scfg, DEV), bsp.make_sparse_grid(scfg, "cpu")
+    for i in range(4):
+        g_card = sparse_step(g_card, obs_a[i], obs_b[i])
+        g_cpu = sparse_step(g_cpu, cpu_a[i], cpu_b[i])
+    table_equal = {k: bool(torch.equal(getattr(g_card, k).cpu(), getattr(g_cpu, k)))
+                   for k in ("table_key", "table_slot", "pool_coords", "n_alloc", "dropped_blocks",
+                             "dropped_active")}
+    payload_diff = {k: float((getattr(g_card, k).cpu() - getattr(g_cpu, k)).abs().max())
+                    for k in ("tsdf", "weight", "rgb", "feature")}
+    if not all(table_equal.values()) or max(payload_diff.values()) > MAP_ATOL:
+        fail(f"perception bench: the card's pool differs from the CPU's: {table_equal} {payload_diff}")
+
+    dcfg = ct.MapperConfig(dims=(128, 128, 128), rgb_channels=True, feature_channels=BENCH_F)
+
+    def dense_step(g, a, b):
+        return mpr.integrate_camera(dcfg, mpr.integrate_camera(dcfg, g, a), b)
+
+    st["dense"] = mpr.make_grid(dcfg, DEV)
+
+    def dense_call(i):
+        st["dense"] = dense_step(st["dense"], obs_a[i % 4], obs_b[i % 4])
+
+    dense = group_ms(dense_call)
+    dgrid = st["dense"]
+    esdf = group_ms(lambda i: mpr.compute_esdf(dcfg, dgrid))
+    jfa_cfg = dataclasses.replace(dcfg, esdf_mode="jfa")
+    jfa_ms = host_ms(lambda: mpr.compute_esdf(jfa_cfg, dgrid), reps=3)
+    exact_d, jfa_d = mpr.compute_esdf(dcfg, dgrid), mpr.compute_esdf(jfa_cfg, dgrid)
+    return dict(
+        cameras=2, frame=[BENCH_H, BENCH_W], feature_channels=BENCH_F, config=BENCH_SPARSE,
+        dual_rgbd_feature_integrate_ms_min=min(sparse),
+        dual_rgbd_feature_integrate_ms_median=statistics.median(sparse),
+        curobo_quoted_ms=CUROBO_FRAME_MS, vs_curobo=CUROBO_FRAME_MS / min(sparse),
+        allocated_blocks=int(sgrid.n_alloc), dropped_blocks=dropped, dropped_active=dropped_active,
+        pool_vs_cpu=dict(table_equal=table_equal, payload_max_abs_diff=payload_diff,
+                         allocated=int(g_cpu.n_alloc)),
+        dense_128_integrate_ms_min=min(dense), dense_128_integrate_ms_median=statistics.median(dense),
+        esdf_128_ms=min(esdf), esdf_128_ms_median=statistics.median(esdf), esdf_128_mode="exact",
+        esdf_128_jfa_ms=jfa_ms, jfa_vs_exact_max_m=float((exact_d - jfa_d).abs().max()),
+        occupied_128=int((exact_d < 0).sum()))
+
+
+def perception_mesh(kin):
+    """(c) An icosphere mesh and a point cloud (a box's surface) beside the
+    table: the native bake against its numpy plain version, then both
+    obstacles through `compile_scene` and 100 goals x 32 seeds of IK around
+    them on the card (generic route)."""
+    phi = (1 + 5 ** 0.5) / 2
+    v = [[-1, phi, 0], [1, phi, 0], [-1, -phi, 0], [1, -phi, 0], [0, -1, phi], [0, 1, phi],
+         [0, -1, -phi], [0, 1, -phi], [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1], [-phi, 0, 1]]
+    v = [list(np.asarray(p) / np.linalg.norm(p)) for p in v]
+    f = [[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11], [1, 5, 9], [5, 11, 4],
+         [11, 10, 2], [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8],
+         [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]]
+    for _ in range(2):
+        mid, nf = {}, []
+
+        def m(a, b):
+            if (min(a, b), max(a, b)) not in mid:
+                p = np.asarray(v[a]) + np.asarray(v[b])
+                v.append(list(p / np.linalg.norm(p)))
+                mid[(min(a, b), max(a, b))] = len(v) - 1
+            return mid[(min(a, b), max(a, b))]
+
+        for a, b, c in f:
+            ab, bc, ca = m(a, b), m(b, c), m(c, a)
+            nf += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        f = nf
+    verts, faces = np.asarray(v) * 0.12, np.asarray(f, dtype=np.int64)
+    mesh = gt.MeshObstacle(name="ball_mesh", pose=[0.5, 0.3, 0.45, 1, 0, 0, 0], vertices=verts,
+                           faces=faces, voxel_size=0.02)
+    t0 = time.perf_counter()
+    g_native, _, _ = gmesh.mesh_to_sdf_grid(mesh)
+    t1 = time.perf_counter()
+    g_plain, _, _ = gmesh.mesh_to_sdf_grid(mesh, plain=True)
+    t2 = time.perf_counter()
+    bake_diff = float(np.abs(g_native - g_plain).max())
+    if bake_diff > MAP_ATOL:
+        fail(f"native mesh bake differs from the numpy one by {bake_diff}")
+    rng = np.random.RandomState(5)
+    pts = rng.uniform(-1, 1, (2000, 3)) * 0.1
+    face = np.argmax(np.abs(pts), axis=-1)
+    pts[np.arange(len(pts)), face] = np.sign(pts[np.arange(len(pts)), face]) * 0.1
+    cloud = gt.PointCloudObstacle(name="crate_cloud", pose=[0.5, -0.3, 0.4, 1, 0, 0, 0], points=pts,
+                                  point_radius=0.01, voxel_size=0.02)
+    t3 = time.perf_counter()
+    world = ct.compile_scene(table_scene().add(mesh, cloud))
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    goals = make_goals(kin, world)
+    solver = ct.IKSolver(kin.params, ct.IKConfig(n_seeds=N_SEEDS))
+    res, ms, launches, pair = timed_solves(solver, world, goals, 2)
+    ik_launch_check("mesh IK", launches, pair)
+    valid = ct.RobotSceneCollision(kin.params).validate(world, res.solution)
+    return dict(mesh_vertices=len(verts), mesh_triangles=len(faces), mesh_grid=list(g_native.shape),
+                native_bake_ms=(t1 - t0) * 1e3, plain_bake_ms=(t2 - t1) * 1e3,
+                native_vs_plain_max_m=bake_diff, cloud_points=len(pts),
+                compile_scene_ms=(t4 - t3) * 1e3, grids=[g.name for g in world.voxel_grids],
+                goals=N_GOALS, seeds=N_SEEDS, success_rate=float(res.success.float().mean()),
+                solved_and_clear=float((res.success & valid).float().sum() /
+                                       res.success.float().sum().clamp_min(1)),
+                ms_per_solve_median=statistics.median(ms), launches=launches,
+                pair_kernel_launches=pair)
+
+
+def perception_pose_and_mask(kin):
+    """(d) `SDFPoseDetector` recovers the small offset of
+    `tests/test_pose_estimation.py` on the card (and agrees with the CPU), and
+    `RobotSegmenter` masks the Franka in a 480 x 640 frame with the same
+    pixels as on the CPU."""
+    h = np.asarray(POSE_BOX_HALF)
+    verts = np.array([[sx * h[0], sy * h[1], sz * h[2]] for sx in (-1, 1) for sy in (-1, 1)
+                      for sz in (-1, 1)])
+    faces = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+                      [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]])
+    mesh = gt.MeshObstacle(name="box", vertices=verts, faces=faces, voxel_size=0.01)
+    rng = np.random.RandomState(0)
+    local = rng.uniform(-1, 1, (256, 3)) * h
+    face = np.argmax(np.abs(local) / h, axis=-1)
+    local[np.arange(256), face] = np.sign(local[np.arange(256), face]) * h[face]
+    c, s = np.cos(POSE_YAW), np.sin(POSE_YAW)
+    pts = (local @ np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]]).T + POSE_TRUE_P).astype(np.float32)
+    q_true = np.array([np.cos(POSE_YAW / 2), 0, 0, np.sin(POSE_YAW / 2)], np.float32)
+    p0 = (np.asarray(POSE_TRUE_P) + [0.03, -0.02, 0.01]).astype(np.float32)
+    q0 = q_true + np.array([0.05, 0, 0, 0], np.float32)
+    q0 = q0 / np.linalg.norm(q0)
+    out = {}
+    for key, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+        det = SDFPoseDetector(mesh, PoseEstimationConfig(n_iters=40), device=dev)
+
+        def refine():
+            return det.refine(ct.Pose(torch.tensor(p0, device=dev), torch.tensor(q0, device=dev)),
+                              torch.tensor(pts, device=dev))
+
+        ms = []
+        for _ in range(2):  # the first call, then a warm one
+            t0 = time.perf_counter()
+            pose, rms = refine()
+            pose.position.cpu()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[key] = (pose, rms, ms)
+    pose, rms, ms = out["card"]
+    pose_cpu = out["cpu"][0]
+    pos_err = float(np.linalg.norm(pose.position.cpu().numpy() - POSE_TRUE_P))
+    rot_err = float(2 * np.arccos(min(1.0, abs(float(np.dot(pose.quaternion.cpu().numpy(), q_true))))))
+    pose_line = dict(n_points=256, n_iters=40, position_error_m=pos_err, rotation_error_rad=rot_err,
+                     rms_m=float(rms), refine_first_ms=ms[0], refine_ms=ms[1],
+                     vs_cpu_position_m=float((pose.position.cpu() - pose_cpu.position).norm()))
+    if pos_err >= 0.01 or rot_err >= 0.1 or float(rms) >= 0.01:
+        fail(f"SDFPoseDetector did not recover the pose: {pose_line}")
+
+    R = np.array([[0, 0, -1], [1, 0, 0], [0, -1, 0]], dtype=np.float64)  # looking along -x
+    origin = np.array([1.6, 0.0, 0.5])
+    K = pinhole(BENCH_W, BENCH_H, 70.0)
+    q = kin.params.retract_config
+    spheres = kin.compute_kinematics(q).spheres.cpu().numpy()
+    depth = sphere_render(BENCH_W, BENCH_H, K, R, origin, spheres, wall=2.4)
+    kin_cpu = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"), device="cpu")
+    masks = {}
+    for key, dev, k in (("card", DEV, kin), ("cpu", torch.device("cpu"), kin_cpu)):
+        seg = ct.RobotSegmenter(k.params)
+        obs = camera_obs(depth, K, rot_quat(R), origin, dev)
+        masks[key] = seg.get_robot_mask(obs, k.params.retract_config).cpu()
+    seg = ct.RobotSegmenter(kin.params)
+    obs = camera_obs(depth, K, rot_quat(R), origin, DEV)
+    mask_ms = host_ms(lambda: seg.get_robot_mask(obs, q), reps=5)
+    n_card, n_cpu = int(masks["card"].sum()), int(masks["cpu"].sum())
+    mask_line = dict(frame=[BENCH_H, BENCH_W], spheres=int((spheres[:, 3] >= 0).sum()),
+                     robot_pixels=n_card, robot_pixels_cpu=n_cpu,
+                     masks_equal=bool(torch.equal(masks["card"], masks["cpu"])), mask_ms=mask_ms)
+    if n_card != n_cpu or n_card == 0:
+        fail(f"RobotSegmenter: {mask_line}")
+    return pose_line, mask_line
+
+
+def perception_phase(kin):
+    """Phase `perception`: (a) the example's pipeline into IK, (b) the bench's
+    perception throughput, (c) mesh and point-cloud obstacles, (d) pose
+    estimation and robot segmentation; each part fails the run at its gate."""
+    t_phase = time.perf_counter()
+    out = dict(phase="perception", gpu=gpu_line())
+    out["example"] = perception_example(kin)
+    out["bench"] = perception_bench()
+    out["mesh"] = perception_mesh(kin)
+    out["pose"], out["segmenter"] = perception_pose_and_mask(kin)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main():
     quick = "--quick" in sys.argv[1:]
     t_start = time.perf_counter()
@@ -2584,7 +3051,8 @@ def main():
     out_dir = OUT_DIR
     os.makedirs(out_dir, exist_ok=True)
     try:
-        alone = [a for a in sys.argv[1:] if a in ("--g1", "--retarget", "--torque", "--voxel")]
+        alone = [a for a in sys.argv[1:]
+                 if a in ("--g1", "--retarget", "--torque", "--voxel", "--perception")]
         if alone:
             emit(dict(phase="env", gpu=gpu_line(), torch=torch.__version__, cuda=torch.version.cuda))
             kin = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"))
@@ -2596,6 +3064,8 @@ def main():
                 emit(torque_phase(kin, motion_suite(), out_dir, t_start))
             if "--voxel" in alone:
                 emit(voxel_phase(kin, motion_suite()))
+            if "--perception" in alone:
+                emit(perception_phase(kin))
             return
         run(quick, t_start, out_dir)
     finally:
@@ -2644,16 +3114,18 @@ def sc_ptxas_entries(ptx, kernel):
     return out
 
 
-def new_path_launches(name, torque, voxel):
-    """A kernel's launches on the paths of phases `torque` and `voxel`."""
+def new_path_launches(name, torque, voxel, perception):
+    """A kernel's launches on the paths of phases `torque`, `voxel` and
+    `perception`."""
     def of(d):
         return d.get("launches", {}).get(name, d.get("pair_kernel_launches", {}).get(name, 0))
 
     return dict(launches_torque_phase=of(torque), launches_voxel_phase={
-        part: of(voxel[part]) for part in ("ik", "mpc", "attached", "multi_env")})
+        part: of(voxel[part]) for part in ("ik", "mpc", "attached", "multi_env")},
+        launches_perception_phase={part: of(perception[part]) for part in ("example", "mesh")})
 
 
-def sc_kernel_lines(sc, g1, generic, rt, ptx, torque, voxel):
+def sc_kernel_lines(sc, g1, generic, rt, ptx, torque, voxel, perception):
     """The `kernels` entries of the three pair kernels: times at the G1 line
     search (the main fields), the retarget robot's global and local frames
     and the Franka; launches in phase `retarget` (the slice's main path; per
@@ -2686,7 +3158,7 @@ def sc_kernel_lines(sc, g1, generic, rt, ptx, torque, voxel):
             launches_retarget_per_part=per_part,
             launches_g1_phase=g1["pair_kernel_launches"][k],
             launches_generic_phase=generic["pair_kernel_launches"][k],
-            **new_path_launches(k, torque, voxel),
+            **new_path_launches(k, torque, voxel, perception),
             device_ms=g["device_ms"][k], device_ms_retarget_global=rg["device_ms"][k],
             device_ms_retarget_local=rl["device_ms"][k], device_ms_franka=fr["device_ms"][k],
             shape_retarget_global=shape(rg), ms_retarget_global=rg["ms"][k],
@@ -2950,6 +3422,8 @@ def run(quick, t_start, out_dir):
     emit(torque)
     voxel = voxel_phase(kin, suite)
     emit(voxel)
+    perception = perception_phase(kin)
+    emit(perception)
 
     # ---- the Unitree G1 on the generic route ----------------------------------------
     g1, g1_q = g1_phase(out_dir)
@@ -3079,9 +3553,9 @@ def run(quick, t_start, out_dir):
                  "cost_rel_median", "x_agree_frac", "feasible_agree_frac", "max_abs_err_x")},
              ptxas=ptxas_of(ptx["traj_kernels"], "traj_solve_kernel")),
     ]
-    kernels += sc_kernel_lines(sc, g1, generic, rt, ptx["self_collision"], torque, voxel)
+    kernels += sc_kernel_lines(sc, g1, generic, rt, ptx["self_collision"], torque, voxel, perception)
     for line in kernels[:4]:
-        line.update(new_path_launches(line["name"], torque, voxel))
+        line.update(new_path_launches(line["name"], torque, voxel, perception))
     emit(dict(phase="compare_summary", env={k: env[k] for k in ("torch", "cuda", "python")},
               build_seconds=secs, cases=brief_cases(
                   [cmp, tcmp, mpc_cmp, full_bench, full_inj, full_traj, dual_cmp, sc], []),

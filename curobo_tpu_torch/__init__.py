@@ -12,7 +12,10 @@ c-space goals, per-tool criteria, torque limits, voxel-grid worlds). IK
 serves robots with several tool frames (the dual-arm UR10e) on the kernel
 route, with an optional Levenberg-Marquardt seed stage (`SeedIK`). Inverse
 dynamics (`Dynamics`, RNEA), grasped objects (`AttachmentManager`) and
-per-problem worlds (`RobotRollout.evaluate_config_env`) are there too. Entry
+per-problem worlds (`RobotRollout.evaluate_config_env`) are there too, and
+perception: depth and LiDAR into dense or block-sparse TSDF maps, their ESDF
+as a planning world (`Mapper.get_voxel_grid`), mesh and point-cloud obstacles
+baked into SDF grids, object pose estimation and sphere fitting. Entry
 points run on the CUDA device unless the caller passes ``device="cpu"``.
 """
 
@@ -70,6 +73,12 @@ from curobo_tpu_torch.collision.robot_scene import AttachmentManager, RobotScene
 # Rollout / goal
 from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRollout, RobotRolloutConfig
 from curobo_tpu_torch.types.tool_pose import ToolPoseCriteria
+
+# Perception
+from curobo_tpu_torch.perception.mapper import Mapper, MapperConfig
+from curobo_tpu_torch.perception.block_sparse import BlockSparseConfig, BlockSparseMapper
+from curobo_tpu_torch.perception.segmenter import FilterDepth, RobotSegmenter
+from curobo_tpu_torch.perception.types import CameraObservation, LidarObservation
 
 from curobo_tpu_torch import runtime
 

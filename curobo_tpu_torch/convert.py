@@ -1,6 +1,7 @@
-"""State carried across from the JAX package: its `KinematicsParams` and
-`WorldData`, given as dictionaries of numpy arrays and static fields (the
-dataclass fields passed through `np.asarray`), become this package's.
+"""State carried across from the JAX package: its `KinematicsParams`,
+`WorldData` and mapper states (`TSDFGrid`, `BlockSparseTSDF`), given as
+dictionaries of numpy arrays and static fields (the dataclass fields passed
+through `np.asarray`), become this package's.
 
 The package loads the same YAML itself (`Kinematics.from_robot_yaml`,
 `compile_scene`); these converters exist so that a model or a world built by
@@ -91,3 +92,27 @@ def world_from_numpy(d: dict, device=None) -> world_mod.WorldData:
             for g in d.get("voxel_grids", ())
         ),
     )
+
+
+def tsdf_grid_from_numpy(d: dict, device=None):
+    """d: the JAX package's `TSDFGrid` fields ('tsdf', 'weight', and 'rgb' /
+    'feature' or None) -> this package's `TSDFGrid`."""
+    from curobo_tpu_torch.perception.mapper import TSDFGrid
+
+    device = resolve_device(device)
+
+    def opt(k):
+        return _tensor(d[k], device) if d.get(k) is not None else None
+
+    return TSDFGrid(_tensor(d["tsdf"], device), _tensor(d["weight"], device),
+                    rgb=opt("rgb"), feature=opt("feature"))
+
+
+def block_sparse_from_numpy(d: dict, device=None):
+    """d: the JAX package's `BlockSparseTSDF` fields (table, pool, counters;
+    'rgb' / 'feature' or None) -> this package's `BlockSparseTSDF`."""
+    from curobo_tpu_torch.perception.block_sparse import block_sparse_from_arrays
+
+    arrays = {k: v for k, v in d.items() if v is not None and k != "dropped_blocks"}
+    arrays["dropped"] = d["dropped_blocks"]
+    return block_sparse_from_arrays(arrays, resolve_device(device))

@@ -3,8 +3,8 @@
 Counterpart of `curobo_tpu/geom/world.py`: every obstacle type is a padded
 struct-of-arrays with an ``enabled`` mask, and each dense SDF grid (an ESDF
 from a depth camera: `VoxelGridObstacle`) is one `VoxelGridData`, sampled
-trilinearly. Mesh and point-cloud obstacles, which the JAX package bakes into
-such grids, are not ported yet and make `compile_scene` raise. `stack_worlds`
+trilinearly. Mesh and point-cloud obstacles are baked into such grids on the
+host when the scene is compiled (`geom/mesh.py`), as in the JAX package. `stack_worlds`
 adds a leading axis (one world per MPC tick or environment); `world_at`
 slices it.
 """
@@ -187,12 +187,6 @@ def compile_scene(
     from curobo_tpu_torch.runtime import resolve_device
 
     device = resolve_device(device)
-    for cls in (gt.MeshObstacle, gt.PointCloudObstacle):
-        if scene.by_type(cls):
-            raise NotImplementedError(
-                f"compile_scene: {cls.__name__} obstacles (baked into SDF grids) "
-                "are not ported yet"
-            )
     caps = capacities or {}
 
     def tensor(a):
@@ -284,6 +278,19 @@ def compile_scene(
             tensor(R), tensor(p), tensor(origin), tensor(o.voxel_size), tensor(data),
             tensor(float(o.enabled)), o.name,
         ))
+    # Meshes and point clouds bake to SDF grids in the obstacle's frame on the
+    # host (`geom/mesh.py`), then take the voxel-grid route
+    from curobo_tpu_torch.geom import mesh as mesh_mod
+
+    for cls, bake in ((gt.MeshObstacle, mesh_mod.mesh_to_sdf_grid),
+                      (gt.PointCloudObstacle, mesh_mod.points_to_sdf_grid)):
+        for o in scene.by_type(cls):
+            sdf_grid, origin, cell = bake(o)
+            R, p = _pose_Rp(o.pose)
+            grids.append(VoxelGridData(
+                tensor(R), tensor(p), tensor(origin), tensor(cell), tensor(sdf_grid),
+                tensor(float(o.enabled)), o.name,
+            ))
 
     return WorldData(cuboids, spheres, capsules, cylinders, tuple(grids))
 

@@ -9,6 +9,8 @@ both packages.
 import ast
 import dataclasses
 import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -319,6 +321,28 @@ def test_port_never_imports_jax_or_the_jax_package():
                 if top in ("jax", "jaxlib", "curobo_tpu"):
                     bad.append(f"{os.path.relpath(path, ROOT)}:{node.lineno}: imports {m}")
     assert not bad, "\n".join(bad)
+
+
+def test_port_imports_leave_jax_unloaded():
+    """A fresh interpreter imports the package and its perception and mesh
+    modules (and builds nothing): neither jax nor the JAX package is loaded,
+    which also catches an import made inside a function at import time."""
+    code = (
+        "import sys\n"
+        "import curobo_tpu_torch\n"
+        "from curobo_tpu_torch.perception import block_sparse, mapper, mesh_extract, "
+        "pose_estimation, segmenter, types\n"
+        "from curobo_tpu_torch.geom import mesh, sphere_fit, world\n"
+        "from curobo_tpu_torch.ops import mesh_sdf\n"
+        "from curobo_tpu_torch import convert\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'curobo_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_port_has_no_unreachable_statements():

@@ -9,8 +9,8 @@ with grids; `sphere_sdf` and the collision cost on a world of every obstacle
 type plus a grid (`tests/test_blast.py`'s mixed world); the generic
 objective's cost and gradient on a voxel world against the JAX `RobotRollout`;
 an `IKSolver` solve and `MPCSolver` steps under perception updates on a voxel
-world, which take the generic route; and the mesh and point-cloud obstacles,
-which still raise.
+world, which take the generic route; and mesh and point-cloud obstacles
+without geometry, which raise.
 
 Tolerances (float32): distances within 1e-5 m and their gradients within
 1e-4; the objective's cost and gradient to a relative error median < 1e-4
@@ -310,7 +310,11 @@ def test_ik_on_a_voxel_world_takes_the_generic_route(monkeypatch):
 
 @pytest.mark.parametrize("cls", ["MeshObstacle", "PointCloudObstacle"])
 def test_mesh_and_point_cloud_obstacles_still_raise(cls):
-    with pytest.raises(NotImplementedError, match=cls):
+    """Mesh and point-cloud obstacles are baked into grids now
+    (`tests/test_torch_mesh.py`); one without geometry still raises, naming
+    what is missing."""
+    match = "unsupported mesh format" if cls == "MeshObstacle" else "needs \\(N, 3\\) points"
+    with pytest.raises(ValueError, match=match):
         ct.compile_scene(tgt.Scene().add(getattr(tgt, cls)(name="g")), device="cpu")
 
 

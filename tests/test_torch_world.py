@@ -123,14 +123,17 @@ def test_world_updates_reach_the_tables(worlds):
 
 @pytest.mark.parametrize("cls", ["MeshObstacle", "VoxelGridObstacle", "PointCloudObstacle"])
 def test_grid_obstacles_are_refused(cls):
-    """Mesh and point-cloud obstacles (baked into SDF grids) are refused; a
-    voxel grid compiles to one grid of free space (10.0) by default."""
+    """A voxel grid compiles to one grid of free space (10.0) by default.
+    Mesh and point-cloud obstacles bake into SDF grids
+    (`tests/test_torch_mesh.py`); one without geometry is refused, naming
+    what is missing."""
     scene = tgt.Scene().add(getattr(tgt, cls)(name="g"))
     if cls == "VoxelGridObstacle":
         (vg,) = ct.compile_scene(scene, device="cpu").voxel_grids
         assert vg.name == "g" and vg.data.shape == (20, 20, 20) and bool((vg.data == 10.0).all())
         return
-    with pytest.raises(NotImplementedError, match=cls):
+    match = "unsupported mesh format" if cls == "MeshObstacle" else "needs \\(N, 3\\) points"
+    with pytest.raises(ValueError, match=match):
         ct.compile_scene(scene, device="cpu")
 
 
