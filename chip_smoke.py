@@ -8,6 +8,7 @@
     python3 chip_smoke.py --torque   # phase `torque` alone
     python3 chip_smoke.py --voxel    # phase `voxel` alone
     python3 chip_smoke.py --perception  # phase `perception` alone
+    python3 chip_smoke.py --urdf     # phase `urdf` alone
 
 Builds the CUDA kernels from the sources in this checkout and holds each
 kernel against its plain PyTorch version on the card at the shapes of its
@@ -74,6 +75,24 @@ the reference bench's perception protocol (two 480 x 640 RGB-D cameras with
 cuRobo's quoted 2 ms, no dropped block; the dense 128^3 grid and its ESDF),
 mesh and point-cloud obstacles (the native bake held against the numpy one,
 then IK around them), `SDFPoseDetector` and `RobotSegmenter`.
+Phase `urdf` (a) writes `franka.yml`'s links as URDF text, loads it with
+`RobotModelConfig.from_urdf` and the YAML's spheres, ignore matrix, buffers,
+retract and locks (the tables must equal the YAML model's, compared by link
+name) and solves 100 goals x 32 seeds at the bench budget on the kernel
+route, bit-equal to the YAML robot's solve; (b) runs `RobotBuilder` on that
+URDF and on the demo arm of `examples/build_robot_model.py` (the card's
+config must equal the CPU's), solves 100 x 32 on the built Franka beside the
+plain version on the same seeds, and holds `RobotDebugger`'s report of
+`franka.yml` to the CPU's (`sc_pair_viol` must launch); (c) runs every
+method of the optimizer registry on `examples/custom_optimization.py`'s
+objective (each must lower the cost; the deterministic ones agree with the
+CPU's run within 1 %; L-BFGS within the example's 20 mm; the pair kernels must
+launch; the objective's self-collision term and its gradient at the start, at
+every method's end and on 256 configurations drawn within the limits agree
+with the CPU's, and a pair left out of the sum shows);
+(d) solves the 100 x 32 with `solve_ik_sharded` on a 2 x 2 mesh of the card,
+bit-equal to the unsharded solve; (e) exports a suite plan with
+`export_plan_usd`, equal to the CPU's export within 1e-5.
 The traces and the compiler's `-Xptxas -v` logs are written to
 `chiprun_out/`. Every line of output is one JSON object, except the line with
 the card's name and power limit. Exits non-zero on the first failed phase, and
@@ -90,6 +109,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -114,6 +134,14 @@ from curobo_tpu_torch.geom import mesh as gmesh
 from curobo_tpu_torch.perception import block_sparse as bsp
 from curobo_tpu_torch.perception import mapper as mpr
 from curobo_tpu_torch.perception.pose_estimation import PoseEstimationConfig, SDFPoseDetector
+from curobo_tpu_torch.cost import terms as cost_terms
+from curobo_tpu_torch.opt import factory as opt_factory
+from curobo_tpu_torch.parallel import mesh as pmesh
+from curobo_tpu_torch.robot.builder import RobotBuilder
+from curobo_tpu_torch.robot.debugger import RobotDebugger
+from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRollout, RobotRolloutConfig
+from curobo_tpu_torch.util import usd_export
+from curobo_tpu_torch.util.config_io import load_yaml
 
 DEV = torch.device("cuda", 0)
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
@@ -193,20 +221,27 @@ def gpu_line():
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "unknown"
 
 
-def time_ms(fn, reps, warm=1):
-    """Median milliseconds of `fn` by CUDA events, after warm-up."""
+def event_samples(fn, reps, warm=1):
+    """CUDA-event milliseconds of `reps` calls of `fn` after `warm` warm-up
+    calls, and the last call's result."""
+    out = None
     for _ in range(warm):
-        fn()
+        out = fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        out = fn()
         b.record()
         torch.cuda.synchronize()
         ts.append(a.elapsed_time(b))
-    return statistics.median(ts)
+    return ts, out
+
+
+def time_ms(fn, reps, warm=1):
+    """Median milliseconds of `fn` by CUDA events, after warm-up."""
+    return statistics.median(event_samples(fn, reps, warm)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -1688,17 +1723,7 @@ def sc_counts():
 
 def best_ms(fn, reps=5):
     """Best of `reps` by CUDA events, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        ts.append(a.elapsed_time(b))
-    return min(ts)
+    return min(event_samples(fn, reps)[0])
 
 
 # cycles of the spin kernel that holds the stream while `device_ms` enqueues
@@ -3044,6 +3069,517 @@ def perception_phase(kin):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase `urdf`: the Franka loaded from URDF text, the robot builder and
+# debugger, the optimizer registry, the sharded solve on a 2 x 2 mesh of the
+# card, and USD export
+# ---------------------------------------------------------------------------
+# the 3-dof arm of `examples/build_robot_model.py` (its DEMO_URDF), copied
+DEMO_URDF = """<?xml version="1.0"?>
+<robot name="demo_arm">
+  <link name="base_link"/>
+  <link name="link1"/>
+  <link name="link2"/>
+  <link name="tool"/>
+  <joint name="j1" type="revolute">
+    <parent link="base_link"/><child link="link1"/>
+    <origin xyz="0 0 0.10" rpy="0 0 0"/><axis xyz="0 0 1"/>
+    <limit lower="-3.0" upper="3.0" effort="50" velocity="2.0"/>
+  </joint>
+  <joint name="j2" type="revolute">
+    <parent link="link1"/><child link="link2"/>
+    <origin xyz="0 0 0.25" rpy="0 0 0"/><axis xyz="0 1 0"/>
+    <limit lower="-2.2" upper="2.2" effort="50" velocity="2.0"/>
+  </joint>
+  <joint name="j3" type="revolute">
+    <parent link="link2"/><child link="tool"/>
+    <origin xyz="0 0 0.25" rpy="0 0 0"/><axis xyz="0 1 0"/>
+    <limit lower="-2.2" upper="2.2" effort="50" velocity="2.0"/>
+  </joint>
+</robot>
+"""
+# franka.yml's fields that a URDF does not carry, handed to `from_urdf`
+URDF_CARRIED = ("retract_config", "cspace_weight", "null_space_weight", "self_collision_ignore",
+                "self_collision_buffer", "sphere_buffer", "extra_collision_spheres",
+                "max_acceleration", "max_jerk", "velocity_scale")
+# link-indexed fields of KinematicsParams, compared by link name: `from_urdf`
+# orders links depth first by sorted name (as the JAX package does), the YAML
+# lists them breadth first
+LINK_FIELDS = ("fixed_rot", "fixed_pos", "joint_axis", "mimic_mult", "mimic_offset", "link_mass",
+               "link_com", "link_inertia")
+# `examples/custom_optimization.py`'s menu and budgets, and the rest of the
+# registry at budgets of the same order
+REGISTRY_RUNS = (("lbfgs", dict(n_iters=40)), ("conjugate_gradient", dict(n_iters=60)),
+                 ("lsr1", dict(n_iters=60)), ("gradient_descent", dict(n_iters=60)),
+                 ("mppi", dict(n_iters=20, n_particles=64, init_std=0.4)),
+                 ("es", dict(n_iters=20, n_particles=64)), ("torch", dict(max_iters=100, lr=0.05)),
+                 ("scipy", dict(max_iters=20)))
+# methods that draw nothing: held to the CPU's run of the same method, final
+# mean cost within 1 % of the CPU's (line-search ties part the two float
+# orders after a few iterations, as between the JAX and PyTorch runs: 0.11 %
+# at most, conjugate gradient, in the H100 runs before this limit was set)
+REGISTRY_DETERMINISTIC = ("lbfgs", "conjugate_gradient", "lsr1", "gradient_descent", "torch",
+                          "scipy")
+REGISTRY_REL = 0.01
+# the objective's self-collision term (the pair kernels on the card, the plain
+# pair sum on the CPU) and its gradient, at the start, at every method's end
+# and on a sweep of configurations drawn within the limits, where pairs are
+# active: the cost's largest difference over its largest CPU value, the
+# gradient's median and 99th-percentile relative error over its nonzero
+# entries (floor 1); a planted fault, one representative active pair left out
+# of the CPU's sum, must read above the cost limit
+REGISTRY_SC_REL, REGISTRY_SWEEP = 1e-4, 256
+REGISTRY_POS_MM = 20.0  # the example's gate on L-BFGS's mean position error
+USD_ATOL = 1e-5
+USD_NUM = re.compile(r"-?\d+\.?\d*(?:e[-+]?\d+)?")
+
+
+def urdf_text(d):
+    """URDF text of a robot YAML dict's `links` (origins, axes, limits, mimic
+    relations, inertials, visuals named package://robot/<mesh>)."""
+    def v3(x):
+        return " ".join(repr(float(a)) for a in x)
+
+    r = d["robot"] if "robot" in d else d
+    out = ['<?xml version="1.0"?>', f'<robot name="{r.get("name", "robot")}">']
+    for l in r["links"]:
+        out.append(f'  <link name="{l["name"]}">')
+        if "mass" in l:
+            I = np.asarray(l.get("inertia", [0.0] * 9), np.float64).reshape(3, 3)
+            out += ["    <inertial>", f'      <origin xyz="{v3(l.get("com", (0, 0, 0)))}" rpy="0 0 0"/>',
+                    f'      <mass value="{float(l["mass"])!r}"/>',
+                    f'      <inertia ixx="{float(I[0, 0])!r}" ixy="{float(I[0, 1])!r}" '
+                    f'ixz="{float(I[0, 2])!r}" iyy="{float(I[1, 1])!r}" iyz="{float(I[1, 2])!r}" '
+                    f'izz="{float(I[2, 2])!r}"/>', "    </inertial>"]
+        for v in l.get("visual", []):
+            out += ["    <visual>", f'      <origin xyz="{v3(v.get("origin_xyz", (0, 0, 0)))}" '
+                    f'rpy="{v3(v.get("origin_rpy", (0, 0, 0)))}"/>',
+                    f'      <geometry><mesh filename="package://robot/{v["mesh"]}" '
+                    f'scale="{v3(v.get("scale", (1, 1, 1)))}"/></geometry>', "    </visual>"]
+        out.append("  </link>")
+    for l in r["links"]:
+        if l.get("parent") is None:
+            continue
+        jt = l.get("joint_type", "fixed")
+        out += [f'  <joint name="{l.get("joint_name", l["name"] + "_joint")}" type="{jt}">',
+                f'    <parent link="{l["parent"]}"/>', f'    <child link="{l["name"]}"/>',
+                f'    <origin xyz="{v3(l.get("origin_xyz", (0, 0, 0)))}" '
+                f'rpy="{v3(l.get("origin_rpy", (0, 0, 0)))}"/>']
+        # every joint's axis, the fixed ones' too: the YAML's default is z
+        out.append(f'    <axis xyz="{v3(l.get("axis", (0, 0, 1)))}"/>')
+        if jt != "fixed":
+            lo, hi, vel, eff = l["limits"]
+            out += [f'    <limit lower="{float(lo)!r}" upper="{float(hi)!r}" '
+                    f'velocity="{float(vel)!r}" effort="{float(eff)!r}"/>']
+        if l.get("mimic"):
+            m = l["mimic"]
+            out.append(f'    <mimic joint="{m["joint"]}" multiplier="{float(m.get("multiplier", 1.0))!r}" '
+                       f'offset="{float(m.get("offset", 0.0))!r}"/>')
+        out.append("  </joint>")
+    out.append("</robot>")
+    return "\n".join(out) + "\n"
+
+
+def params_mismatch(a, b):
+    """Fields of KinematicsParams `a` that differ from `b`'s: link-indexed
+    tables and link indices compared through the link names, every other
+    field exactly (tensors bit for bit)."""
+    bad = []
+    if sorted(a.link_names) != sorted(b.link_names):
+        return ["link_names"]
+    perm = torch.as_tensor([a.link_names.index(n) for n in b.link_names], device=a.device)
+    name_a = lambda i: a.link_names[i] if i >= 0 else None
+    name_b = lambda i: b.link_names[i] if i >= 0 else None
+    for f in LINK_FIELDS:
+        if not torch.equal(getattr(a, f)[perm], getattr(b, f).to(a.device)):
+            bad.append(f)
+    pa = {a.link_names[i]: i for i in range(a.n_links)}
+    if [name_a(a.parent_idx[pa[n]]) for n in b.link_names] != [name_b(p) for p in b.parent_idx]:
+        bad.append("parent_idx")
+    for f in ("joint_type", "dof_idx"):
+        if [getattr(a, f)[pa[n]] for n in b.link_names] != list(getattr(b, f)):
+            bad.append(f)
+    if [sorted(name_a(i) for i in lv) for lv in a.levels] != [sorted(name_b(i) for i in lv)
+                                                               for lv in b.levels]:
+        bad.append("levels")
+    for f in ("sphere_link_idx", "tool_frame_idx"):
+        if [name_a(i) for i in getattr(a, f)] != [name_b(i) for i in getattr(b, f)]:
+            bad.append(f)
+    skip = set(LINK_FIELDS) | {"link_names", "parent_idx", "joint_type", "dof_idx", "levels",
+                               "sphere_link_idx", "tool_frame_idx"}
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return x.dtype == y.dtype and torch.equal(x, y.to(x.device))
+        if dataclasses.is_dataclass(x):
+            return all(same(getattr(x, g.name), getattr(y, g.name)) for g in dataclasses.fields(x))
+        return x == y
+
+    bad += [f.name for f in dataclasses.fields(a)
+            if f.name not in skip and not same(getattr(a, f.name), getattr(b, f.name))]
+    return bad
+
+
+def launch_counts():
+    return dict(launches=counts(), pair_kernel_launches=sc_counts())
+
+
+IK_FIELDS = ("solution", "success", "cost", "position_error", "rotation_error")
+
+
+def urdf_franka(tmp, kin, world, goals):
+    """(a) franka.yml's links written as URDF text, loaded with `from_urdf`
+    and franka.yml's spheres, ignore matrix, buffers, retract and locks: the
+    tables equal the YAML model's, and the bench's 100 x 32 kernel-route
+    solve equals the YAML robot's bit for bit."""
+    path = os.path.join(tmp, "franka.urdf")
+    with open(path, "w") as fh:
+        fh.write(urdf_text(load_yaml(ct.robot_config_path("franka"))))
+    y = ct.RobotModelConfig.from_yaml(ct.robot_config_path("franka"))
+    cfg = ct.RobotModelConfig.from_urdf(path, y.base_link, y.tool_frames,
+                                        collision_spheres=y.collision_spheres,
+                                        lock_joints=y.lock_joints,
+                                        **{k: getattr(y, k) for k in URDF_CARRIED})
+    params = ct.build_kinematics_params(cfg)
+    bad = params_mismatch(params, kin.params)
+    if bad:
+        fail(f"URDF Franka: KinematicsParams fields differ from the YAML model's: {bad}")
+    bench_cfg = bench_ik_config()
+    solver_u, solver_y = ct.IKSolver(params, bench_cfg), ct.IKSolver(kin.params, bench_cfg)
+    if not torch.equal(solver_u.generate_seeds(N_GOALS), solver_y.generate_seeds(N_GOALS)):
+        fail("URDF Franka: its seeds differ from the YAML robot's")
+    reset_counts()
+    ms_u, res_u = event_samples(lambda: solver_u.solve_pose(world, goals), 10)
+    if counts()["ik_solve"] != 11:
+        fail(f"URDF Franka: 11 solves launched {counts()}")
+    ms_y, res_y = event_samples(lambda: solver_y.solve_pose(world, goals), 10)
+    differ = [f for f in IK_FIELDS if not torch.equal(getattr(res_u, f), getattr(res_y, f))]
+    if differ:
+        fail(f"URDF Franka: the solve differs from the YAML robot's in {differ}")
+    # the repo's check of a solution, on the URDF robot's tables: FK reaches
+    # the goal, and the objective kernel gives the reported cost
+    kin_u = ct.Kinematics(params)
+    fk_err = (kin_u.compute_kinematics(res_u.solution).tool_pose.position[:, 0] - goals.position).norm(dim=-1)
+    if bool(res_u.success.any()) and float(fk_err[res_u.success].max()) > 0.005 + 1e-4:
+        fail(f"URDF Franka: FK of a solution misses its goal by {float(fk_err[res_u.success].max())}")
+    c_chk, _ = solver_u._ik_cost(torch.cat([goals.position, goals.quaternion], dim=-1),
+                                 res_u.solution.contiguous(), world)
+    c_rel = float(((c_chk - res_u.cost).abs() / (res_u.cost.abs() + 1e-2)).max())
+    launches = launch_counts()
+    if c_rel > 1e-3 or launches["launches"]["ik_cost_grad"] < 1:
+        fail(f"URDF Franka: cost check {c_rel}, launches {launches}")
+    return dict(
+        links=params.n_links, spheres=params.n_spheres, pairs=int(params.self_collision.pair_a.shape[0]),
+        link_order_urdf=list(params.link_names), link_order_yaml=list(kin.params.link_names),
+        params_equal_by_link_name=True, goals=N_GOALS, seeds=N_SEEDS,
+        success_rate=float(res_u.success.float().mean()), solve_bit_equal=list(IK_FIELDS),
+        seed_solutions_max_abs_diff=float((res_u.seed_solutions - res_y.seed_solutions).abs().max()),
+        ms_per_solve_median=statistics.median(ms_u), ms_per_solve_min=min(ms_u),
+        ms_per_solve_median_yaml=statistics.median(ms_y), cost_check_rel_max=c_rel, **launches), path
+
+
+def urdf_builder(tmp, franka_path, world, goals):
+    """(b) `RobotBuilder` on the URDF Franka (skeleton spheres: no mesh
+    resolves) and the demo arm, on the card and on the CPU; the built
+    Franka's 100 x 32 solve beside the plain version's on the same seeds;
+    `RobotDebugger` on franka.yml against the CPU's report."""
+    out = {}
+    reset_counts()
+    built = {}
+    for name, path, base, tools in (("franka", franka_path, "panda_link0", ["panda_hand"]),
+                                    ("demo_arm", os.path.join(tmp, "demo_arm.urdf"), "base_link",
+                                     ["tool"])):
+        if name == "demo_arm":
+            with open(path, "w") as fh:
+                fh.write(DEMO_URDF)
+        t0 = time.perf_counter()
+        card = RobotBuilder(path, base, tools)
+        cfg = card.build(out_path=os.path.join(tmp, f"{name}.yml"), name=name)
+        card_s = time.perf_counter() - t0
+        cfg_cpu = RobotBuilder(path, base, tools, device="cpu").build(name=name)
+        if cfg != cfg_cpu:
+            fail(f"RobotBuilder({name}): the card's config differs from the CPU's")
+        retract = card.debug_retract_pose(cfg)
+        if not retract["retract_ok"]:
+            fail(f"RobotBuilder({name}): built model collides at retract: {retract}")
+        col = cfg["robot"]["collision"]
+        built[name] = os.path.join(tmp, f"{name}.yml")
+        out[name] = dict(build_s=card_s, spheres=sum(map(len, col["spheres"].values())),
+                         ignore_pairs=sum(map(len, col["self_collision_ignore"].values())),
+                         dof=len(cfg["robot"]["actuated_joints"]), config_equal_to_cpu=True,
+                         retract=retract)
+    out["build_launches"] = launch_counts()
+
+    # the built Franka (9 dof: the fingers are actuated, skeleton spheres),
+    # in an empty world: the skeleton's spheres at panda_link0's origin reach
+    # below z = 0, into the table (its success there is reported)
+    kin_b = ct.Kinematics.from_robot_yaml(built["franka"])
+    bench_cfg = bench_ik_config()
+    solver = ct.IKSolver(kin_b.params, bench_cfg)
+    empty = ct.compile_scene(gt.Scene())
+    sr_table = float(solver.solve_pose(world, goals).success.float().mean())
+    reset_counts()
+    ms, res = event_samples(lambda: solver.solve_pose(empty, goals), 3)
+    launches = launch_counts()
+    if launches["launches"]["ik_solve"] != 4:
+        fail(f"built Franka: 4 solves launched {launches}")
+    D = kin_b.n_dof
+    seeds = solver.generate_seeds(N_GOALS).reshape(-1, D).contiguous()
+    goal7 = torch.cat([goals.position, goals.quaternion], dim=-1)
+    goal7 = goal7[:, None].expand(N_GOALS, N_SEEDS, 7).reshape(-1, 7).contiguous()
+    _, _, pe, re_, fe = ikk.ik_solve_plain(solver._ik_cost.tables, ikk.pack_world_arrays(empty),
+                                           goal7, seeds, budget_of(bench_cfg))
+    conv = ((pe <= 0.005) & (re_ <= 0.05) & (fe > 0.5)).reshape(N_GOALS, N_SEEDS)
+    sr, sr_plain = float(res.success.float().mean()), float(conv.any(dim=1).float().mean())
+    sph = kin_b.compute_kinematics(kin_b.params.retract_config).spheres
+    out["built_franka_solve"] = dict(
+        dof=D, spheres=kin_b.params.n_spheres, goals=N_GOALS, seeds=N_SEEDS, world="empty",
+        success_rate=sr, success_rate_plain=sr_plain, success_rate_table_world=sr_table,
+        lowest_sphere_bottom_z_at_retract=float((sph[:, 2] - sph[:, 3]).min()),
+        ms_per_solve_median=statistics.median(ms), **launches)
+    if abs(sr - sr_plain) > 0.05:
+        fail(f"built Franka: success {sr} against the plain version's {sr_plain}")
+
+    # the debugger on franka.yml: the card's report equals the CPU's
+    kin_cpu = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"), device="cpu")
+    kin = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"))
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = RobotDebugger(kin.params).report()
+    debug_s = time.perf_counter() - t0
+    launches = launch_counts()
+    rep_cpu = RobotDebugger(kin_cpu.params).report()
+    keys = ("ok", "issues", "n_dof", "n_spheres", "n_self_collision_pairs", "free_fraction",
+            "retract_violating_pairs", "per_link_spheres", "sphere_radius_range")
+    differ = [k for k in keys if getattr(rep, k) != getattr(rep_cpu, k)]
+    if differ or launches["pair_kernel_launches"]["sc_pair_viol"] < 1:
+        fail(f"RobotDebugger: differs from the CPU's report in {differ}, launches {launches}")
+    out["debugger"] = dict(ok=rep.ok, issues=rep.issues, free_fraction=rep.free_fraction,
+                           n_spheres=rep.n_spheres, n_self_collision_pairs=rep.n_self_collision_pairs,
+                           retract_violation=rep.retract_self_collision_violation,
+                           report_equal_to_cpu=True, report_s=debug_s, **launches)
+    return out
+
+
+def registry_problem(dev):
+    """`examples/custom_optimization.py`'s objective on `dev`: the Franka's
+    `RobotRollout.evaluate_config` over the table, 8 goals made from the
+    retract pose with a seeded offset, from the retract pose."""
+    kin = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"), device=dev)
+    p = kin.params
+    world = ct.compile_scene(table_scene(), device=dev)
+    rollout = RobotRollout(p, RobotRolloutConfig())
+    rng = np.random.RandomState(0)
+    q_true = torch.as_tensor(p.retract_config.cpu().numpy() + rng.uniform(-0.5, 0.5, (8, p.n_dof)),
+                             dtype=torch.float32, device=dev)
+    st = kin.compute_kinematics(q_true)
+    goal = Goal.from_pose(ct.Pose(st.tool_pose.position[:, 0], st.tool_pose.quaternion[:, 0]))
+    sc_cfg = rollout.cfg.self_collision_cost
+    return dict(cost=lambda q: rollout.evaluate_config(world, goal, q).cost,
+                x0=p.retract_config.expand(8, p.n_dof), lo=p.joint_limits.lower,
+                hi=p.joint_limits.upper, pos_err=lambda q: rollout.evaluate_config(world, goal, q).pos_err,
+                spheres=lambda q: kin.compute_kinematics(q).spheres,
+                sc=lambda q, sc=p.self_collision: cost_terms.self_collision_cost_term(
+                    sc, kin.compute_kinematics(q).spheres, sc_cfg), sc_params=p.self_collision)
+
+
+def registry_sc_check(prob, prob_cpu, points):
+    """The objective's self-collision term and its gradient on the card
+    against the CPU's at the named batches of configurations `points`, and a
+    planted fault's reading (module comment of REGISTRY_SC_REL)."""
+    names = list(points)
+    q = torch.cat([points[k].detach().cpu() for k in names])
+    lo, hi = prob_cpu["lo"].numpy(), prob_cpu["hi"].numpy()
+    sweep = np.random.RandomState(1).uniform(lo, hi, (REGISTRY_SWEEP, lo.shape[0]))
+    q = torch.cat([q, torch.as_tensor(sweep, dtype=torch.float32)])
+
+    def cost_grad(pr, x, **kw):
+        x = x.clone().requires_grad_(True)
+        c = pr["sc"](x, **kw)
+        return c.detach(), torch.autograd.grad(c.sum(), x)[0]
+
+    c_k, g_k = cost_grad(prob, q.to(DEV))
+    c_k, g_k = c_k.cpu(), g_k.cpu()
+    c_p, g_p = cost_grad(prob_cpu, q)
+    big = float(c_p.abs().max())
+    g = grad_agreement(g_k, g_p)
+    # the planted fault: the active pair of median summed hinge over the sweep
+    sc = prob_cpu["sc_params"]
+    with torch.no_grad():
+        x = prob_cpu["spheres"](q[-REGISTRY_SWEEP:])
+        d = (x[:, sc.pair_a.long(), :3] - x[:, sc.pair_b.long(), :3]).norm(dim=-1)
+        hinge = torch.relu(sc.pair_margin - d).sum(dim=0)
+    active = torch.nonzero(hinge > 0).flatten()
+    pair = int(active[torch.argsort(hinge[active])[active.numel() // 2]]) if active.numel() else -1
+    planted = float("nan")
+    if pair >= 0:
+        margin = sc.pair_margin.clone()
+        margin[pair] = -float("inf")
+        c_f, _ = cost_grad(prob_cpu, q, sc=dataclasses.replace(sc, pair_margin=margin))
+        planted = float((c_f - c_p).abs().max()) / big
+    out, i = dict(points={}), 0
+    for k in names + ["sweep"]:
+        n = points[k].shape[0] if k != "sweep" else REGISTRY_SWEEP
+        out["points"][k] = dict(mean_card=float(c_k[i:i + n].mean()), mean_cpu=float(c_p[i:i + n].mean()),
+                                nonzero=int((c_p[i:i + n] > 0).sum()), n=n)
+        i += n
+    out.update(max_abs_cpu=big, cost_max_abs_err_over_max=float((c_k - c_p).abs().max()) / big if big else
+               float("inf"), grad=g, planted_pair=pair, planted_pair_hinge_sum=float(hinge[pair]) if pair >= 0
+               else 0.0, planted_cost_max_abs_err_over_max=planted)
+    if not (out["cost_max_abs_err_over_max"] <= REGISTRY_SC_REL and g["rel_median"] < COST_MED
+            and g["rel_p99"] < COST_P99):
+        fail(f"registry: the self-collision term on the card differs from the CPU's: {out}")
+    if not planted > REGISTRY_SC_REL:
+        fail(f"registry: a pair left out of the sum does not show in the self-collision check: {out}")
+    return out
+
+
+def urdf_registry():
+    """(c) every registry method on the example's objective on the card; the
+    deterministic ones also on the CPU."""
+    prob, prob_cpu = registry_problem(DEV), registry_problem(torch.device("cpu"))
+    c0 = float(prob["cost"](prob["x0"]).mean())
+    out = dict(problems=8, start_mean_cost=c0, methods={})
+    # one iteration of each first: the ms below are steady state (the first
+    # `torch.optim` step imports much of torch's compiler stack)
+    for name, _ in REGISTRY_RUNS:
+        budget = {"max_iters": 1} if name in ("torch", "scipy") else {"n_iters": 1}
+        opt_factory.optimize(name, prob["cost"], prob["x0"], opt_factory.make_config(name, **budget),
+                             lower=prob["lo"], upper=prob["hi"],
+                             generator=torch.Generator(device=DEV).manual_seed(0))
+    reset_counts()
+    ends = {"start": prob["x0"]}
+    for name, kw in REGISTRY_RUNS:
+        cfg = opt_factory.make_config(name, **kw)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, c = opt_factory.optimize(name, prob["cost"], prob["x0"], cfg, lower=prob["lo"],
+                                    upper=prob["hi"], generator=gen)
+        torch.cuda.synchronize()
+        row = dict(ms=(time.perf_counter() - t0) * 1e3, mean_cost=float(c.mean()))
+        if not (torch.isfinite(x).all() and row["mean_cost"] < c0):
+            fail(f"registry {name}: mean cost {row['mean_cost']} from {c0}")
+        ends[name] = x
+        if name in REGISTRY_DETERMINISTIC:
+            t0 = time.perf_counter()
+            xc, cc = opt_factory.optimize(name, prob_cpu["cost"], prob_cpu["x0"], cfg,
+                                          lower=prob_cpu["lo"], upper=prob_cpu["hi"])
+            row.update(ms_cpu=(time.perf_counter() - t0) * 1e3, mean_cost_cpu=float(cc.mean()),
+                       max_abs_x_vs_cpu=float((x.cpu() - xc).abs().max()))
+            row["mean_cost_rel_diff_vs_cpu"] = abs(row["mean_cost"] - row["mean_cost_cpu"]) / row["mean_cost_cpu"]
+            if row["mean_cost_rel_diff_vs_cpu"] > REGISTRY_REL:
+                fail(f"registry {name}: the card's run parts from the CPU's: {row}")
+        if name == "lbfgs":
+            row["mean_position_error_mm"] = float(prob["pos_err"](x).mean()) * 1e3
+            if row["mean_position_error_mm"] >= REGISTRY_POS_MM:
+                fail(f"registry lbfgs: mean position error {row['mean_position_error_mm']} mm")
+        out["methods"][name] = row
+    out.update(launch_counts())
+    out["self_collision"] = registry_sc_check(prob, prob_cpu, ends)
+    out["tolerance"] = (f"deterministic methods: |mean cost - CPU's| <= {REGISTRY_REL} CPU's; "
+                        f"lbfgs mean position error < {REGISTRY_POS_MM} mm; self-collision term: "
+                        f"max |card - CPU| <= {REGISTRY_SC_REL} max |CPU|, gradient relative median "
+                        f"< {COST_MED}, p99 < {COST_P99}")
+    if min(out["pair_kernel_launches"][k] for k in ("sc_pair_cost", "sc_pair_grad")) < 1:
+        fail(f"registry: the pair kernels did not launch: {out['pair_kernel_launches']}")
+    return out
+
+
+def urdf_sharded(kin, world, goals):
+    """(d) `solve_ik_sharded` over the bench's 100 x 32 on a 2 x 2 mesh of
+    the card at the bench budget (no particle stage) against the unsharded
+    solve from the same seeds: bit-equal wherever a seed converged; a problem
+    no seed solves is held to the JAX rule (the block winner of least
+    position error)."""
+    solver = ct.IKSolver(kin.params, bench_ik_config())
+    goal = Goal.from_pose(goals)
+    seeds = solver.generate_seeds(N_GOALS)
+    mesh = pmesh.make_mesh_2d(2, 2, [DEV] * 4)
+    ms_ref, ref = event_samples(lambda: solver.solve_pose(world, goals), 5)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    reset_counts()
+    ms_sh, res = event_samples(lambda: pmesh.solve_ik_sharded(solver, world, goal, seeds, gen, mesh), 5)
+    launches = launch_counts()
+    if launches["launches"]["ik_solve"] != 4 * 6:
+        fail(f"sharded IK: 6 solves of 4 blocks launched {launches}")
+    ok = ref.success
+    differ = [f for f in IK_FIELDS if not torch.equal(getattr(res, f)[ok], getattr(ref, f)[ok])]
+    if differ or not torch.equal(res.success, ref.success):
+        fail(f"sharded IK: differs from the unsharded solve in {differ}")
+    if not bool(ok.all()):
+        # per seed block, the winner of that block: the rule's least error
+        h = N_SEEDS // 2
+        blocks = [solver._solve_seeds(world, goal, seeds[:, h * j:h * j + h], 0) for j in range(2)]
+        least = torch.minimum(blocks[0].position_error, blocks[1].position_error)
+        if not torch.equal(res.position_error[~ok], least[~ok]):
+            fail("sharded IK: a failed problem does not take the least position error")
+    return dict(mesh=[2, 2], device=str(DEV), goals=N_GOALS, seeds=N_SEEDS,
+                success_rate=float(ok.float().mean()), failed_problems=int((~ok).sum()),
+                bit_equal_fields=list(IK_FIELDS), seed_solutions_bit_equal=bool(
+                    torch.equal(res.seed_solutions, ref.seed_solutions)),
+                ms_sharded_median=statistics.median(ms_sh), ms_unsharded_median=statistics.median(ms_ref),
+                **launches)
+
+
+def usd_prims(text):
+    return re.findall(r'def (\w+) "([^"]+)"', text)
+
+
+def urdf_usd(tmp, kin, suite):
+    """(e) `export_plan_usd` of suite problem 0's plan: FK on the card and on
+    the CPU give the same prims, numbers within USD_ATOL."""
+    p0 = suite["problems"][0]
+    world, goal, start = problem_inputs(kin, p0, suite["cuboid_capacity"])
+    planner = ct.MotionPlanner(kin.params)
+    reset_counts()
+    res = planner.plan_pose(world, goal, start, seed=0)
+    scene = gt.Scene().add(*[gt.Cuboid(**o) for o in p0["world"]["cuboids"]])
+    paths = dict(card=os.path.join(tmp, "plan_card.usda"), cpu=os.path.join(tmp, "plan_cpu.usda"))
+    t0 = time.perf_counter()
+    usd_export.export_plan_usd(paths["card"], scene, kin.params, res.trajectory)
+    export_s = time.perf_counter() - t0
+    launches = launch_counts()
+    kin_cpu = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"), device="cpu")
+    traj_cpu = ct.JointState.from_position(res.trajectory.position.cpu())
+    usd_export.export_plan_usd(paths["cpu"], scene, kin_cpu.params, traj_cpu)
+    texts = {k: open(v).read() for k, v in paths.items()}
+    la, lb = texts["card"].splitlines(), texts["cpu"].splitlines()
+    worst = 0.0
+    same = usd_prims(texts["card"]) == usd_prims(texts["cpu"]) and len(la) == len(lb)
+    for x, y in zip(la, lb):
+        nx, ny = USD_NUM.findall(x), USD_NUM.findall(y)
+        same = same and USD_NUM.sub("#", x) == USD_NUM.sub("#", y) and len(nx) == len(ny)
+        if nx and len(nx) == len(ny):
+            worst = max(worst, float(np.abs(np.asarray(nx, float) - np.asarray(ny, float)).max()))
+    if not same or worst > USD_ATOL:
+        fail(f"USD export: the card's stage differs from the CPU's (max number diff {worst})")
+    return dict(plan_success=bool(res.success[0]), frames=int(res.trajectory.position.shape[-2]),
+                prims=len(usd_prims(texts["card"])), lines=len(la), bytes=len(texts["card"]),
+                max_abs_number_diff_vs_cpu=worst, export_s=export_s, **launches)
+
+
+def urdf_phase(kin, suite):
+    """Phase `urdf`: (a) the URDF Franka, (b) the builder and debugger, (c)
+    the optimizer registry, (d) the sharded solve, (e) USD export; each part
+    fails the run at its gate."""
+    t_phase = time.perf_counter()
+    out = dict(phase="urdf", gpu=gpu_line())
+    world = ct.compile_scene(table_scene())
+    goals = make_goals(kin, world)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["franka"], franka_path = urdf_franka(tmp, kin, world, goals)
+        parts = (("builder", lambda: urdf_builder(tmp, franka_path, world, goals)),
+                 ("registry", urdf_registry), ("sharded", lambda: urdf_sharded(kin, world, goals)),
+                 ("usd", lambda: urdf_usd(tmp, kin, suite)))
+        for name, part in parts:
+            # each part's line as it ends (a later part's failure keeps them)
+            emit(dict(phase="urdf_part", done=list(out)[2:], seconds=time.perf_counter() - t_phase))
+            out[name] = part()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main():
     quick = "--quick" in sys.argv[1:]
     t_start = time.perf_counter()
@@ -3052,7 +3588,7 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     try:
         alone = [a for a in sys.argv[1:]
-                 if a in ("--g1", "--retarget", "--torque", "--voxel", "--perception")]
+                 if a in ("--g1", "--retarget", "--torque", "--voxel", "--perception", "--urdf")]
         if alone:
             emit(dict(phase="env", gpu=gpu_line(), torch=torch.__version__, cuda=torch.version.cuda))
             kin = ct.Kinematics.from_robot_yaml(ct.robot_config_path("franka"))
@@ -3066,6 +3602,8 @@ def main():
                 emit(voxel_phase(kin, motion_suite()))
             if "--perception" in alone:
                 emit(perception_phase(kin))
+            if "--urdf" in alone:
+                emit(urdf_phase(kin, motion_suite()))
             return
         run(quick, t_start, out_dir)
     finally:
@@ -3114,18 +3652,31 @@ def sc_ptxas_entries(ptx, kernel):
     return out
 
 
-def new_path_launches(name, torque, voxel, perception):
-    """A kernel's launches on the paths of phases `torque`, `voxel` and
-    `perception`."""
+URDF_PARTS = {"franka": ("franka",), "builder": ("builder", "build_launches"),
+              "built_franka_solve": ("builder", "built_franka_solve"),
+              "debugger": ("builder", "debugger"), "registry": ("registry",),
+              "sharded": ("sharded",), "usd": ("usd",)}
+
+
+def new_path_launches(name, torque, voxel, perception, urdf):
+    """A kernel's launches on the paths of phases `torque`, `voxel`,
+    `perception` and `urdf` (per part)."""
     def of(d):
         return d.get("launches", {}).get(name, d.get("pair_kernel_launches", {}).get(name, 0))
 
+    def part_of(keys):
+        d = urdf
+        for k in keys:
+            d = d[k]
+        return of(d)
+
     return dict(launches_torque_phase=of(torque), launches_voxel_phase={
         part: of(voxel[part]) for part in ("ik", "mpc", "attached", "multi_env")},
-        launches_perception_phase={part: of(perception[part]) for part in ("example", "mesh")})
+        launches_perception_phase={part: of(perception[part]) for part in ("example", "mesh")},
+        launches_urdf_phase={part: part_of(keys) for part, keys in URDF_PARTS.items()})
 
 
-def sc_kernel_lines(sc, g1, generic, rt, ptx, torque, voxel, perception):
+def sc_kernel_lines(sc, g1, generic, rt, ptx, torque, voxel, perception, urdf):
     """The `kernels` entries of the three pair kernels: times at the G1 line
     search (the main fields), the retarget robot's global and local frames
     and the Franka; launches in phase `retarget` (the slice's main path; per
@@ -3158,7 +3709,7 @@ def sc_kernel_lines(sc, g1, generic, rt, ptx, torque, voxel, perception):
             launches_retarget_per_part=per_part,
             launches_g1_phase=g1["pair_kernel_launches"][k],
             launches_generic_phase=generic["pair_kernel_launches"][k],
-            **new_path_launches(k, torque, voxel, perception),
+            **new_path_launches(k, torque, voxel, perception, urdf),
             device_ms=g["device_ms"][k], device_ms_retarget_global=rg["device_ms"][k],
             device_ms_retarget_local=rl["device_ms"][k], device_ms_franka=fr["device_ms"][k],
             shape_retarget_global=shape(rg), ms_retarget_global=rg["ms"][k],
@@ -3424,6 +3975,8 @@ def run(quick, t_start, out_dir):
     emit(voxel)
     perception = perception_phase(kin)
     emit(perception)
+    urdf = urdf_phase(kin, suite)
+    emit(urdf)
 
     # ---- the Unitree G1 on the generic route ----------------------------------------
     g1, g1_q = g1_phase(out_dir)
@@ -3553,9 +4106,10 @@ def run(quick, t_start, out_dir):
                  "cost_rel_median", "x_agree_frac", "feasible_agree_frac", "max_abs_err_x")},
              ptxas=ptxas_of(ptx["traj_kernels"], "traj_solve_kernel")),
     ]
-    kernels += sc_kernel_lines(sc, g1, generic, rt, ptx["self_collision"], torque, voxel, perception)
+    kernels += sc_kernel_lines(sc, g1, generic, rt, ptx["self_collision"], torque, voxel, perception,
+                               urdf)
     for line in kernels[:4]:
-        line.update(new_path_launches(line["name"], torque, voxel, perception))
+        line.update(new_path_launches(line["name"], torque, voxel, perception, urdf))
     emit(dict(phase="compare_summary", env={k: env[k] for k in ("torch", "cuda", "python")},
               build_seconds=secs, cases=brief_cases(
                   [cmp, tcmp, mpc_cmp, full_bench, full_inj, full_traj, dual_cmp, sc], []),

@@ -15,8 +15,13 @@ dynamics (`Dynamics`, RNEA), grasped objects (`AttachmentManager`) and
 per-problem worlds (`RobotRollout.evaluate_config_env`) are there too, and
 perception: depth and LiDAR into dense or block-sparse TSDF maps, their ESDF
 as a planning world (`Mapper.get_voxel_grid`), mesh and point-cloud obstacles
-baked into SDF grids, object pose estimation and sphere fitting. Entry
-points run on the CUDA device unless the caller passes ``device="cpu"``.
+baked into SDF grids, object pose estimation and sphere fitting. A robot
+loads from a robot YAML or a URDF (`RobotModelConfig.from_urdf`; `RobotBuilder`
+fits its collision spheres and writes the YAML, `RobotDebugger` checks it),
+and the tooling of the JAX package is here too: the optimizer registry
+(`opt/factory.py`), profiling, metrics, USD export and a one-card device mesh
+(`parallel/mesh.py`). Entry points run on the CUDA device unless the caller
+passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -39,6 +44,7 @@ from curobo_tpu_torch.robot.kinematics import Kinematics, KinematicsState, compu
 from curobo_tpu_torch.robot.model import RobotModelConfig, build_kinematics_params
 from curobo_tpu_torch.robot.params import KinematicsParams, JointLimits
 from curobo_tpu_torch.robot.dynamics import Dynamics, compute_inverse_dynamics
+from curobo_tpu_torch.robot.debugger import RobotDebugger, RobotReport
 
 # Geometry / world
 from curobo_tpu_torch.geom.types import (
@@ -73,6 +79,16 @@ from curobo_tpu_torch.collision.robot_scene import AttachmentManager, RobotScene
 # Rollout / goal
 from curobo_tpu_torch.rollout.robot_rollout import Goal, RobotRollout, RobotRolloutConfig
 from curobo_tpu_torch.types.tool_pose import ToolPoseCriteria
+from curobo_tpu_torch.rollout.rosenbrock import RosenbrockConfig, RosenbrockRollout
+
+# Optimizer escape hatch + profiling facade
+from curobo_tpu_torch.opt.external import (
+    ScipyOptConfig,
+    TorchOptConfig,
+    scipy_optimize,
+    torch_optimize,
+)
+from curobo_tpu_torch import profiling
 
 # Perception
 from curobo_tpu_torch.perception.mapper import Mapper, MapperConfig

@@ -56,20 +56,22 @@ def voxel_init(sdf: np.ndarray, origin: np.ndarray, cell: float, n_spheres: int
     return np.asarray(centers, dtype=np.float32), np.asarray(radii, dtype=np.float32)
 
 
-def _fit_problem(mesh: gt.MeshObstacle, cfg: SphereFitConfig, dev):
-    """The baked SDF, the voxel seeds and the loss over (centers, raw radii)."""
+def _fit_problem(mesh: gt.MeshObstacle, cfg: SphereFitConfig, dev, dtype=torch.float32):
+    """The baked SDF, the voxel seeds and the loss over (centers, raw radii).
+    The grid, its origin and the surface samples hold float32 values in any
+    `dtype`, as in the JAX package."""
     sdf_grid, origin, cell = mesh_to_sdf_grid(mesh)
     centers0, radii0 = voxel_init(sdf_grid, origin, cell, cfg.n_spheres)
-    grid = torch.as_tensor(sdf_grid, device=dev)
-    org = torch.as_tensor(origin, device=dev)
+    grid = torch.as_tensor(sdf_grid, device=dev).to(dtype)
+    org = torch.as_tensor(origin, device=dev).to(dtype)
 
     # surface samples for the coverage loss: voxels near sdf=0
     near = np.argwhere(np.abs(sdf_grid) < cell)
     if len(near) > 512:
         near = near[np.random.RandomState(0).choice(len(near), 512, replace=False)]
-    surf = torch.as_tensor(origin + near * cell, dtype=torch.float32, device=dev)
-    eye = torch.eye(cfg.n_spheres, dtype=torch.float32, device=dev)
-    min_r = torch.tensor(cfg.min_radius, device=dev)
+    surf = torch.as_tensor(origin + near * cell, dtype=torch.float32, device=dev).to(dtype)
+    eye = torch.eye(cfg.n_spheres, dtype=dtype, device=dev)
+    min_r = torch.tensor(cfg.min_radius, dtype=dtype, device=dev)
 
     def loss(c, r_raw):
         r = torch.maximum(r_raw, min_r)
@@ -94,13 +96,14 @@ def _fit_problem(mesh: gt.MeshObstacle, cfg: SphereFitConfig, dev):
 
 
 def fit_spheres_to_mesh(mesh: gt.MeshObstacle, cfg: SphereFitConfig = SphereFitConfig(),
-                        device=None) -> Tuple[np.ndarray, np.ndarray]:
-    """Returns (centers (K, 3), radii (K,)) in the mesh's local frame.
-    ``device=None`` is the CUDA device (raises when there is none)."""
+                        device=None, dtype=torch.float32) -> Tuple[np.ndarray, np.ndarray]:
+    """Returns (centers (K, 3), radii (K,)) in the mesh's local frame, as
+    `dtype` (the fit's parameters and Adam state). ``device=None`` is the
+    CUDA device (raises when there is none)."""
     dev = resolve_device(device)
-    centers0, radii0, loss = _fit_problem(mesh, cfg, dev)
-    c = torch.as_tensor(centers0, device=dev).clone().requires_grad_(True)
-    r_raw = torch.as_tensor(radii0, device=dev).clone().requires_grad_(True)
+    centers0, radii0, loss = _fit_problem(mesh, cfg, dev, dtype)
+    c = torch.tensor(centers0, dtype=dtype, device=dev, requires_grad=True)
+    r_raw = torch.tensor(radii0, dtype=dtype, device=dev, requires_grad=True)
     opt = torch.optim.Adam([c, r_raw], lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8)
     for _ in range(cfg.n_iters):
         opt.zero_grad()

@@ -524,7 +524,10 @@ def _pose_error_plain(goal: torch.Tensor, Rt: torch.Tensor, tp: torch.Tensor):
     s2 = rx * rx + ry * ry + rz * rz
     small = s2 < 1e-12
     s = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))
-    angle = 2.0 * torch.atan2(s, rw)
+    # in float64, rounded once: float32 atan2 on the CPU takes a vector or a
+    # scalar path by the tensor's length, which would make a configuration's
+    # bits depend on the batch (the kernel's are per configuration)
+    angle = 2.0 * torch.atan2(s.double(), rw.double()).to(s.dtype)
     scale = torch.where(small, torch.full_like(s, 2.0), angle / s)
     return pe2, s2 * scale * scale
 

@@ -132,19 +132,21 @@ def lbfgs_optimize(
     cfg: LBFGSConfig,
     lower: Optional[torch.Tensor] = None,
     upper: Optional[torch.Tensor] = None,
+    cost_grad_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Minimize cost_fn (batched) from x0 -> (x_best, cost_best).
 
     cost_fn maps (..., D) -> (...,) and is also called with one extra leading
     candidate axis (the line-search fold): (L, ..., D) -> (L, ...); autograd
-    derives its gradient. Candidates are not projected; with bounds, the
-    best point is projected once at the end and evaluated again, so the
-    returned cost is the cost of the returned point.
+    derives its gradient unless `cost_grad_fn` (x -> (cost, grad), same
+    contract) is given. Candidates are not projected; with bounds, the best
+    point is projected once at the end and evaluated again, so the returned
+    cost is the cost of the returned point.
     """
     batch_shape = tuple(x0.shape[:-1])
     D = x0.shape[-1]
     m = cfg.history
-    cg = cost_grad_of(cost_fn)
+    cg = cost_grad_fn if cost_grad_fn is not None else cost_grad_of(cost_fn)
 
     def project(x):
         return torch.clamp(x, lower, upper) if lower is not None else x

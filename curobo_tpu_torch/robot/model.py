@@ -1,22 +1,21 @@
 """Robot model construction: config dict -> KinematicsParams.
 
 Counterpart of `curobo_tpu/robot/model.py`, same YAML schema
-(``format: curobo-tpu-robot/1``) and the same table construction.
-`RobotModelConfig.from_urdf` waits for the port of `robot/urdf.py`. Nothing
-here opens a mesh: ``asset_root`` and ``visual`` entries are carried as
-metadata only.
+(``format: curobo-tpu-robot/1``) and the same table construction; a URDF loads
+through the package's own parser (`robot/urdf.py`). Nothing here opens a
+mesh: ``asset_root`` and ``visual`` entries are carried as metadata only.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from curobo_tpu_torch.robot import urdf as urdf_mod
 from curobo_tpu_torch.robot.params import (
     JOINT_FIXED,
     JOINT_PRISMATIC,
@@ -179,23 +178,96 @@ class RobotModelConfig:
         return RobotModelConfig.from_dict(load_yaml(path))
 
     @staticmethod
-    def from_urdf(*args, **kwargs) -> "RobotModelConfig":
-        raise NotImplementedError(
-            "RobotModelConfig.from_urdf: the URDF parser (robot/urdf.py) is "
-            "not ported yet; load a robot YAML instead"
+    def from_urdf(
+        urdf_path: str,
+        base_link: str,
+        tool_frames: Sequence[str],
+        actuated_joints: Optional[Sequence[str]] = None,
+        collision_spheres: Optional[Dict[str, List[dict]]] = None,
+        lock_joints: Optional[Dict[str, float]] = None,
+        **kwargs,
+    ) -> "RobotModelConfig":
+        """The subtree of ``base_link``, depth first, with its joints,
+        limits, mimic relations, inertials and visuals (``package://``
+        stripped). ``actuated_joints`` defaults to the movable joints that
+        are neither mimic nor locked. The asset root is
+        ``CUROBO_TORCH_ASSET_ROOT``, else the URDF's directory."""
+        robot = urdf_mod.parse_urdf(urdf_path)
+        by_child = robot.joint_by_child
+
+        # Keep every link reachable from base_link (subtree), depth-first.
+        children: Dict[str, List[str]] = {}
+        for j in robot.joints.values():
+            children.setdefault(j.parent_link, []).append(j.child_link)
+        keep: List[str] = []
+        stack = [base_link]
+        while stack:
+            l = stack.pop()
+            keep.append(l)
+            stack.extend(sorted(children.get(l, [])))
+
+        links: List[LinkSpec] = []
+        for name in keep:
+            j = by_child.get(name)
+            link = robot.links[name]
+            inertial = link.inertial
+            spec = LinkSpec(
+                name=name,
+                parent=None if name == base_link else j.parent_link,
+                mass=inertial.mass if inertial else 0.0,
+                com=tuple(inertial.com) if inertial else (0, 0, 0),
+                inertia=tuple(inertial.inertia.reshape(-1)) if inertial else (0.0,) * 9,
+                visual=[
+                    {
+                        "mesh": (
+                            v.mesh.split("://", 1)[1].split("/", 1)[-1]
+                            if v.mesh.startswith("package://")
+                            else v.mesh
+                        ),
+                        "origin_xyz": list(v.xyz),
+                        "origin_rpy": list(v.rpy),
+                        "scale": list(v.scale),
+                    }
+                    for v in link.visuals
+                ],
+            )
+            if name != base_link and j is not None:
+                spec.joint_name = j.name
+                spec.joint_type = j.joint_type
+                spec.origin_xyz = tuple(j.origin_xyz)
+                spec.origin_rpy = tuple(j.origin_rpy)
+                spec.axis = tuple(j.axis)
+                spec.limits = (j.limit_lower, j.limit_upper, j.limit_velocity, j.limit_effort)
+                spec.mimic_joint = j.mimic_joint
+                spec.mimic_multiplier = j.mimic_multiplier
+                spec.mimic_offset = j.mimic_offset
+            links.append(spec)
+
+        if actuated_joints is None:
+            actuated_joints = [
+                l.joint_name
+                for l in links
+                if l.joint_type in ("revolute", "continuous", "prismatic")
+                and l.mimic_joint is None
+                and l.joint_name not in (lock_joints or {})
+            ]
+        kwargs.setdefault(
+            "asset_root",
+            os.environ.get(
+                "CUROBO_TORCH_ASSET_ROOT",
+                os.path.dirname(os.path.abspath(urdf_path)),
+            ),
         )
-
-
-def rpy_to_matrix(rpy: np.ndarray) -> np.ndarray:
-    """URDF fixed-axis roll/pitch/yaw -> rotation matrix (numpy, host side)."""
-    r, p, y = rpy
-    cr, sr = math.cos(r), math.sin(r)
-    cp, sp = math.cos(p), math.sin(p)
-    cy, sy = math.cos(y), math.sin(y)
-    Rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]])
-    Ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
-    Rx = np.array([[1, 0, 0], [0, cr, -sr], [0, sr, cr]])
-    return Rz @ Ry @ Rx
+        return RobotModelConfig(
+            name=robot.name,
+            base_link=base_link,
+            tool_frames=list(tool_frames),
+            actuated_joints=list(actuated_joints),
+            links=links,
+            lock_joints=dict(lock_joints or {}),
+            collision_spheres=dict(collision_spheres or {}),
+            **kwargs,
+        )
 
 
 def build_kinematics_params(
@@ -261,7 +333,7 @@ def build_kinematics_params(
         l = by_name[name]
         parent_idx.append(link_idx[l.parent] if l.parent is not None else -1)
         jt = _JOINT_TYPE_CODES.get(l.joint_type, JOINT_FIXED)
-        fixed_rot[i] = rpy_to_matrix(np.asarray(l.origin_rpy, dtype=np.float64))
+        fixed_rot[i] = urdf_mod.rpy_to_matrix(np.asarray(l.origin_rpy, dtype=np.float64))
         fixed_pos[i] = np.asarray(l.origin_xyz, dtype=np.float64)
         joint_axis[i] = np.asarray(l.axis, dtype=np.float64)
         link_mass[i] = l.mass

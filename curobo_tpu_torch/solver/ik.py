@@ -317,11 +317,26 @@ class IKSolver:
             )
         if world.device != self.device:
             raise ValueError(f"world lies on {world.device}, solver on {self.device}")
-        if self._use_kernel(goal) and ik_kernels.world_is_supported(world):
-            seeds = self.generate_seeds(goal.batch, seed_state)
-            return self._solve_impl_kernel(world, goal, seeds, seed, noise)
         n_gen = self.cfg.n_seeds
-        if self._seed_ik is not None and self.cfg.lm_seed_pool > self.cfg.n_seeds:
+        if (not self._takes_kernel(world, goal) and self._seed_ik is not None
+                and self.cfg.lm_seed_pool > self.cfg.n_seeds):
             n_gen = self.cfg.lm_seed_pool
         seeds = self.generate_seeds(goal.batch, seed_state, n=n_gen)
+        return self._solve_seeds(world, goal, seeds, seed, noise)
+
+    def _takes_kernel(self, world: world_mod.WorldData, goal: Goal) -> bool:
+        return self._use_kernel(goal) and ik_kernels.world_is_supported(world)
+
+    def _solve_seeds(
+        self,
+        world: world_mod.WorldData,
+        goal: Goal,
+        seeds: torch.Tensor,  # (B, S, D)
+        seed: int,
+        noise: Optional[torch.Tensor] = None,
+    ) -> IKResult:
+        """One solve from the given seeds on the route `solve_pose` takes
+        (`noise` is read by the kernel route only)."""
+        if self._takes_kernel(world, goal):
+            return self._solve_impl_kernel(world, goal, seeds, seed, noise)
         return self._solve_impl(world, goal, seeds, seed)

@@ -324,8 +324,9 @@ def test_port_never_imports_jax_or_the_jax_package():
 
 
 def test_port_imports_leave_jax_unloaded():
-    """A fresh interpreter imports the package and its perception and mesh
-    modules (and builds nothing): neither jax nor the JAX package is loaded,
+    """A fresh interpreter imports the package and its perception, mesh, URDF,
+    builder, optimizer-registry, tooling and mesh-placement modules (and
+    builds nothing): neither jax nor the JAX package is loaded,
     which also catches an import made inside a function at import time."""
     code = (
         "import sys\n"
@@ -334,7 +335,12 @@ def test_port_imports_leave_jax_unloaded():
         "pose_estimation, segmenter, types\n"
         "from curobo_tpu_torch.geom import mesh, sphere_fit, world\n"
         "from curobo_tpu_torch.ops import mesh_sdf\n"
-        "from curobo_tpu_torch import convert\n"
+        "from curobo_tpu_torch import convert, profiling, viewer\n"
+        "from curobo_tpu_torch.robot import builder, debugger, import_urdf, urdf\n"
+        "from curobo_tpu_torch.opt import debug, es, external, factory\n"
+        "from curobo_tpu_torch.util import metrics, usd_export\n"
+        "from curobo_tpu_torch.parallel import mesh as pmesh\n"
+        "from curobo_tpu_torch.rollout import rosenbrock\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'curobo_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -76,14 +76,22 @@ def test_leading_batch_dims_fold():
     assert kt.tool_pose(q).quaternion.shape == (2, 3, 1, 4)
 
 
-def test_what_waits_raises():
+def test_what_waits_raises(tmp_path):
     kt = ct.Kinematics.from_robot_yaml(ct.robot_config_path("ur10e"), device="cpu")
     # the analytic Jacobian is ported (tests/test_torch_lm.py holds it to JAX)
     st = kt.compute_kinematics(torch.zeros(1, kt.n_dof), compute_jacobian=True)
     assert st.jacobian.shape == (1, 1, 6, kt.n_dof) and torch.isfinite(st.jacobian).all()
     assert kt.compute_kinematics(torch.zeros(1, kt.n_dof)).jacobian is None
-    with pytest.raises(NotImplementedError, match="URDF"):
-        ct.RobotModelConfig.from_urdf("robot.urdf", "base", ["tool"])
+    # URDF loading is ported (tests/test_torch_urdf.py holds it to JAX)
+    urdf = tmp_path / "robot.urdf"
+    urdf.write_text(
+        '<robot name="r"><link name="base"/><link name="tool"/>'
+        '<joint name="j" type="revolute"><parent link="base"/><child link="tool"/>'
+        '<axis xyz="0 0 1"/><limit lower="-1" upper="1" velocity="1" effort="1"/></joint></robot>'
+    )
+    cfg = ct.RobotModelConfig.from_urdf(str(urdf), "base", ["tool"])
+    assert cfg.actuated_joints == ["j"] and cfg.asset_root == str(tmp_path)
+    assert ct.build_kinematics_params(cfg, device="cpu").n_dof == 1
     with pytest.raises(ValueError, match="trailing dimension"):
         kt.compute_kinematics(torch.zeros(1, kt.n_dof + 1))
 

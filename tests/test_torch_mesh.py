@@ -234,11 +234,11 @@ def test_sdf_pose_detector_matches_jax():
 def test_fit_spheres_to_mesh_matches_jax():
     """One Adam step (the bake, the voxel seeds, the surface samples, the
     loss, its gradient and the update) equals the JAX package's within 1e-3 m
-    and the loss within 1e-3 relative. Over the default 200 steps the two
-    part by millimetres: Adam's step is scale-invariant, so float32 rounding
-    in near-zero gradient components (a seed sphere touches the surface
-    exactly) becomes steps of a fraction of the learning rate; there both
-    fits lower the loss below the seeds' and end within 10 % of each other."""
+    and the loss within 1e-3 relative. Over the default 200 float32 steps the
+    two part by millimetres, float32 rounding that Adam's scale-invariant
+    step amplifies (`test_fit_spheres_to_mesh_float64_matches_jax` shows it);
+    there both fits lower the loss below the seeds' and end within 10 % of
+    each other."""
     v, f = box_mesh((0.05, 0.08, 0.12))
     mesh_t, mesh_j = (m.MeshObstacle(name="box", vertices=v, faces=f, voxel_size=0.01) for m in (tgt, jgt))
     c0, r0, loss = tfit._fit_problem(mesh_t, tfit.SphereFitConfig(n_spheres=8), torch.device(DEV))
@@ -260,6 +260,32 @@ def test_fit_spheres_to_mesh_matches_jax():
     _, _, _, _, lt, lj = results[200]
     assert lt < l0 and lj < l0 and abs(lt - lj) <= 0.1 * lj, (l0, lt, lj)
     assert tfit.estimate_sphere_count(mesh_t) == jfit.estimate_sphere_count(mesh_j)
+
+
+def test_fit_spheres_to_mesh_float64_matches_jax(monkeypatch):
+    """The 200-step gap of the float32 fits is float32 rounding, not a fault
+    of the port: run in float64 (JAX under its scoped x64 switch, with
+    float64 seeds; both keep the surface samples float32-valued), the two fits
+    agree within 1e-9 m after 200 steps, while each float32 fit ends
+    millimetres from the float64 one (the JAX fit's own float32 run
+    included)."""
+    import jax
+
+    v, f = box_mesh((0.05, 0.08, 0.12))
+    mesh_t, mesh_j = (m.MeshObstacle(name="box", vertices=v, faces=f, voxel_size=0.01) for m in (tgt, jgt))
+    cfg_t, cfg_j = tfit.SphereFitConfig(n_spheres=8), jfit.SphereFitConfig(n_spheres=8)
+    seeds32 = jfit.voxel_init
+    monkeypatch.setattr(jfit, "voxel_init", lambda *a: tuple(x.astype(np.float64) for x in seeds32(*a)))
+    with jax.enable_x64(True):
+        cj, rj = jfit.fit_spheres_to_mesh(mesh_j, cfg_j)
+    monkeypatch.setattr(jfit, "voxel_init", seeds32)
+    ct64, rt64 = tfit.fit_spheres_to_mesh(mesh_t, cfg_t, device=DEV, dtype=torch.float64)
+    assert cj.dtype == ct64.dtype == np.float64
+    np.testing.assert_allclose(ct64, cj, atol=1e-9)
+    np.testing.assert_allclose(rt64, rj, atol=1e-9)
+    cj32, _ = jfit.fit_spheres_to_mesh(mesh_j, cfg_j)
+    ct32, _ = tfit.fit_spheres_to_mesh(mesh_t, cfg_t, device=DEV)
+    assert np.abs(cj32 - cj).max() > 1e-3 and np.abs(ct32 - cj).max() > 1e-3
 
 
 def test_native_source_copy_is_byte_identical():
